@@ -1,0 +1,554 @@
+"""Hybrid GNN training system (paper Sections III + IV glued together).
+
+Port of ``repro/core/hybrid.py``'s main path.  ``HybridGNNTrainer`` wires
+the logical components of Fig. 3/4 into the pipelined runtime:
+
+  Mini-batch Sampler (host numpy)                       -> stage "sample"
+  Feature Loader (dedup + hot-cache lookup, host gather) -> stage "load"
+  Data Transfer (pinned host->device copies + the
+    on-device combine, the paper's Feature Duplicator)  -> stage "transfer"
+  GNN Trainers (the CPU trainer on the host, n accelerator trainers on the
+    card, unequal shares, one thread each)               -> consumer
+  Synchronizer (share-weighted gradient average, Listing 1)
+  Runtime + DRM (per-stage times -> next iteration's assignment)
+
+The CPU trainer is the paper's host trainer: it runs in torch on CPU
+tensors, so its layers take the plain versions of the kernels.  The
+accelerator trainers' inputs, parameters and kernels live on the card;
+logical accelerator i runs on ``cuda:i % device_count``.  The authoritative
+parameters and the AdamW state live on the first accelerator's device; the
+CPU trainer gets a host copy each iteration and its gradients move back for
+the average.
+
+Times: the transfer stage issues its copies and the combine on a stream of
+its own and waits for that stream before it stops its clock; a trainer
+waits for its device's current stream.  ``t_tran`` and ``t_train`` (the
+DRM's inputs) therefore measure finished work, as the reference times
+after ``block_until_ready``.
+
+Knobs of the reference that this slice does not port raise
+``NotImplementedError`` naming the ROADMAP item that will port them; none
+is silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import accel_devices, resolve_device, synchronize, to_device
+from ..graph.featcache import build_cache, compact_lookup
+from ..graph.featload import FeatureLoader, MissBlock
+from ..graph.models import (GNNConfig, init_params, loss_fn,
+                            params_from_numpy)
+from ..graph.sampler import MiniBatch, NumpySampler
+from ..graph.storage import GraphDataset
+from ..kernels.ops import assemble_features
+from ..optim.optimizers import adamw, apply_updates
+from .drm import Assignment, StageTimes
+from .perfmodel import PLATFORMS, initial_task_mapping
+from .pipeline import PipelineItem, PrefetchPipeline, Stage
+from .protocol import Runtime, Synchronizer, TrainerHandle
+
+__all__ = ["HybridConfig", "HybridGNNTrainer", "IterationMetrics"]
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """The reference's configuration, field for field (``cache_assemble``
+    aside: here the tensor's device picks the kernel or its plain
+    version).  Knobs outside this slice raise in ``__post_init__``."""
+    total_batch: int = 1024
+    n_accel: int = 1
+    hybrid: bool = True               # CPU trainer participates
+    use_drm: bool = True
+    tfp_depth: int = 2                # 0 = sequential (no TFP)
+    use_accel_sampler: bool = False   # not ported (the reference's default
+                                      #   is True)
+    compression: str = "none"
+    feature_dtype: str = "float32"    # transfer dtype: float32 | bfloat16
+    cache_fraction: float = 0.0       # device hot-feature cache (0 = off)
+    cache_sharding: str = "replicated"
+    shard_placement: str = "hash"
+    recent_rows_batches: int = 0
+    kernel_pipeline_depth: int = 1
+    cache_refresh: bool = False
+    cache_refresh_frac: float = 0.25
+    cache_refresh_decay: float = 0.5
+    cache_drift_threshold: float = 0.05  # measured-vs-priced hit-rate drift
+                                      #   that triggers a mapping re-price
+    cache_refresh_hysteresis: float = 1.25
+    async_refresh: bool = False
+    prefetch_windows: int = 0
+    prefetch_dedup_history: int = 2
+    mmap_lru_windows: int = 0
+    dedup: bool = True                # ship unique rows only
+    degrade_on_failure: bool = True
+    prefetch_restart_budget: int = 2
+    refresh_failure_budget: int = 3
+    pipeline_watchdog_seconds: float = 0.0
+    cache_refresh_period: int = 1
+    auto_tune: bool = False
+    autotune_interval: int = 3
+    autotune_hysteresis: float = 0.10
+    autotune_min_gain: float = 0.02
+    autotune_warmup_windows: int = 1
+    initial_threads: Optional[Tuple[int, int, int]] = None
+    lr: float = 1e-3
+    share_quantum: int = 64
+    drm_damping: float = 0.25
+    seed: int = 0
+    host_platform: str = "epyc-7763"
+    accel_platform: str = "h100-sxm"
+    ckpt_every: int = 0               # checkpointing (not ported)
+    ckpt_dir: Optional[str] = None
+
+    def __post_init__(self):
+        for on, knob, item in (
+                (self.use_accel_sampler, "use_accel_sampler=True",
+                 "accelerator sampler"),
+                (self.cache_sharding != "replicated",
+                 f"cache_sharding={self.cache_sharding!r}",
+                 "sharded plane with K4"),
+                (self.cache_refresh, "cache_refresh=True",
+                 "dynamic cache refresh with K5/K6"),
+                (self.async_refresh, "async_refresh=True",
+                 "dynamic cache refresh with K5/K6"),
+                (self.recent_rows_batches > 0, "recent_rows_batches>0",
+                 "recent-rows LRU"),
+                (self.prefetch_windows > 0, "prefetch_windows>0",
+                 "out-of-core storage tier"),
+                (self.mmap_lru_windows > 0, "mmap_lru_windows>0",
+                 "out-of-core storage tier"),
+                (self.auto_tune, "auto_tune=True", "knob autotuner"),
+                (self.compression != "none",
+                 f"compression={self.compression!r}",
+                 "gradient compression"),
+                (self.kernel_pipeline_depth != 1,
+                 f"kernel_pipeline_depth={self.kernel_pipeline_depth}",
+                 "sharded plane with K4"),
+                (self.ckpt_every > 0, "ckpt_every>0", "checkpointing"),
+                (self.pipeline_watchdog_seconds > 0,
+                 "pipeline_watchdog_seconds>0", "fault injection and "
+                 "degraded modes")):
+            if on:
+                raise NotImplementedError(
+                    f"HybridConfig({knob}) is not ported yet "
+                    f"(ROADMAP, port queue: {item})")
+        if self.feature_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"feature_dtype {self.feature_dtype!r}")
+
+
+@dataclasses.dataclass
+class IterationMetrics:
+    iteration: int
+    loss: float
+    acc: float
+    times: StageTimes
+    t_sync: float
+    edges: int
+    assignment: Tuple[int, int]       # (cpu_batch, accel_batch_each) after
+                                      #   this iteration's DRM step
+    shares: Dict[str, int] = dataclasses.field(default_factory=dict)
+                                      # rows each trainer trained this time
+    cache_hit_rate: float = 0.0       # measured cache hit rate (window)
+
+    @property
+    def iter_time(self) -> float:
+        return self.times.iteration_time()
+
+    @property
+    def mteps(self) -> float:
+        t = self.iter_time
+        return self.edges / t / 1e6 if t > 0 else 0.0
+
+
+class HybridGNNTrainer:
+    """Hybrid CPU + accelerator trainer.  ``device=None`` runs the
+    accelerator trainers on ``cuda:0`` (raising without CUDA); pass
+    ``device="cpu"`` to run every trainer on the host."""
+
+    def __init__(self, dataset: GraphDataset, gnn_cfg: GNNConfig,
+                 cfg: HybridConfig, device=None, fault_injector=None):
+        if fault_injector is not None:
+            raise NotImplementedError(
+                "fault_injector is not ported yet (ROADMAP, port queue: "
+                "fault injection and degraded modes)")
+        self.dataset = dataset
+        self.gnn_cfg = gnn_cfg
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.cpu_device = torch.device("cpu")
+        self.accel_devices = accel_devices(self.device, cfg.n_accel)
+        self._rng = np.random.default_rng(cfg.seed)
+        self._epoch_perm = self._rng.permutation(dataset.num_nodes)
+        self._cursor = 0
+        self._transfer_streams: Dict[torch.device, Any] = {}
+
+        # --- parameters / optimizer (one authoritative copy, on the card) ---
+        gen = torch.Generator().manual_seed(cfg.seed)
+        self.optimizer = adamw(cfg.lr)
+        self.set_params(init_params(gnn_cfg, gen, device=self.device))
+
+        # --- sampler, feature store: device hot cache + dedup loader --------
+        self.cpu_sampler = NumpySampler(dataset.graph, gnn_cfg.fanouts,
+                                        seed=cfg.seed + 1)
+        self.cache = build_cache(dataset, cfg.cache_fraction,
+                                 transfer_dtype=cfg.feature_dtype)
+        self.loader = FeatureLoader(dataset, transfer_dtype=cfg.feature_dtype,
+                                    cache=self.cache, dedup=cfg.dedup)
+        # measured duplication factor alpha from one probe mini-batch (its
+        # own sampler and rng: the training streams stay untouched)
+        self.measured_dedup_alpha = (
+            self._probe_dup_factor() if (cfg.dedup and cfg.hybrid) else 1.0)
+
+        # --- initial task mapping from the performance model (design time) ---
+        hit_rate = self.cache.expected_hit_rate if self.cache else 0.0
+        self._model_hit_rate = hit_rate   # rate the current mapping is priced on
+        if cfg.hybrid and cfg.n_accel == 0:
+            mapping = {"cpu": cfg.total_batch, "accel_each": 0}
+        elif cfg.hybrid:
+            mapping = initial_task_mapping(
+                PLATFORMS[cfg.host_platform], PLATFORMS[cfg.accel_platform],
+                cfg.n_accel, cfg.total_batch, gnn_cfg.fanouts,
+                gnn_cfg.layer_dims, model=gnn_cfg.model,
+                cache_hit_rate=hit_rate,
+                dedup_factor=self.measured_dedup_alpha)
+        else:
+            mapping = {"cpu": 0,
+                       "accel_each": cfg.total_batch // max(cfg.n_accel, 1)}
+        thr = cfg.initial_threads or (2, 2, 2)
+        assignment = Assignment(
+            cpu_batch=mapping["cpu"], accel_batch=mapping["accel_each"],
+            n_accel=cfg.n_accel, sample_frac_accel=0.0,
+            threads={"sample": int(thr[0]), "load": int(thr[1]),
+                     "train": int(thr[2])})
+        self.runtime = Runtime(assignment, use_drm=cfg.use_drm,
+                               damping=cfg.drm_damping,
+                               share_quantum=cfg.share_quantum)
+        self.history: List[IterationMetrics] = []
+
+    # ------------------------------------------------------------ utilities
+
+    def set_params(self, params: Mapping[str, Any]) -> None:
+        """Replace the parameters (tensors or array-likes, e.g. weights
+        carried across from the reference) and restart the optimizer."""
+        arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                      else v) for k, v in params.items()}
+        self.params: Params = params_from_numpy(arrays, self.device)
+        self.opt_state = self.optimizer.init(self.params)
+
+    def _probe_dup_factor(self) -> float:
+        """alpha = unique-miss / positional-miss frontier rows of one probe
+        mini-batch at the accelerator-only share, classified against the
+        cache exactly like the transfer path."""
+        probe_n = max(1, self.cfg.total_batch // max(self.cfg.n_accel, 1))
+        rng = np.random.default_rng(self.cfg.seed + 17)
+        tgt = rng.integers(0, self.dataset.num_nodes, probe_n)
+        sampler = NumpySampler(self.dataset.graph, self.gnn_cfg.fanouts,
+                               seed=self.cfg.seed + 17)
+        mb = sampler.sample(tgt, self.dataset.labels[tgt])
+        frontier = mb.frontier(len(self.gnn_cfg.fanouts))
+        look = compact_lookup(
+            frontier, self.cache.slot_of if self.cache is not None else None)
+        if look.miss_positions == 0:      # fully cached probe: no traffic
+            return 1.0
+        return look.num_miss / look.miss_positions
+
+    def _next_targets(self, n: int) -> np.ndarray:
+        if self._cursor + n > len(self._epoch_perm):
+            self._epoch_perm = self._rng.permutation(self.dataset.num_nodes)
+            self._cursor = 0
+        out = self._epoch_perm[self._cursor:self._cursor + n]
+        self._cursor += n
+        return out
+
+    def _accel_device(self, name: str) -> torch.device:
+        """Device of accelerator trainer ``name`` ("accelN" -> ordinal N)."""
+        ordinal = int(name[len("accel"):])
+        return self.accel_devices[ordinal % len(self.accel_devices)]
+
+    def _transfer_stream(self, dev: torch.device):
+        s = self._transfer_streams.get(dev)
+        if s is None:
+            s = self._transfer_streams[dev] = torch.cuda.Stream(dev)
+        return s
+
+    # ------------------------------------------------------- pipeline stages
+
+    def _make_payload(self, it: int) -> PipelineItem:
+        cpu_b, accel_b = self.runtime.quantized_shares()
+        shares: Dict[str, int] = {}
+        if cpu_b > 0:
+            shares["cpu"] = cpu_b
+        if accel_b > 0:
+            for i in range(self.cfg.n_accel):
+                shares[f"accel{i}"] = accel_b
+        payload = {"iteration": it, "shares": shares, "minibatch": {},
+                   "features": {}, "t": {},
+                   "targets": {n: self._next_targets(b)
+                               for n, b in shares.items()}}
+        return PipelineItem(seq=it, payload=payload)
+
+    def _stage_sample(self, item: PipelineItem) -> PipelineItem:
+        p = item.payload
+        t0 = time.perf_counter()
+        for name, tgt in p["targets"].items():
+            p["minibatch"][name] = self.cpu_sampler.sample(
+                tgt, self.dataset.labels[tgt])
+        p["t"]["t_sc"] = time.perf_counter() - t0
+        return item
+
+    def _stage_load(self, item: PipelineItem) -> PipelineItem:
+        p = item.payload
+        self.loader.num_threads = self.runtime.assignment.threads.get("load", 1)
+        t0 = time.perf_counter()
+        for name, mb in p["minibatch"].items():
+            # accelerator trainers take the compact transfer path (unique
+            # miss rows against the on-device hot cache, or plain unique
+            # rows when uncached); the CPU trainer's "device" is host
+            # memory, so it reads its full positional frontier in place
+            if name != "cpu" and (self.cache is not None or self.cfg.dedup):
+                p["features"][name] = self.loader.load_compact(
+                    mb, pin=self.cache is not None)
+            else:
+                p["features"][name] = self.loader.load(
+                    mb, to_device=(name != "cpu"))
+        p["t"]["t_load"] = time.perf_counter() - t0
+        return item
+
+    def _assemble(self, block: MissBlock, dev: torch.device) -> torch.Tensor:
+        """Ship the unique-miss rows + index tables and combine them with
+        the cached rows into the positional layer-0 input on ``dev``.
+
+        The miss block is padded to a 128-row bucket (never past the
+        frontier size), as the reference pads it to bound its compiled
+        shapes; the padding crosses the link, so it is charged to the
+        shipped bytes and the two packages account identically."""
+        look = block.lookup
+        rows = block.rows
+        m = int(rows.shape[0])
+        bucket = min(-(-m // 128) * 128, look.num_rows)
+        if m < bucket:
+            pad = bucket - m
+            rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
+            self.loader.note_transfer_padding(
+                pad, pad * rows.shape[1] * rows.element_size())
+        miss = to_device(rows, dev)
+        slots = to_device(look.slots, dev)
+        miss_index = to_device(look.miss_index, dev)
+        cache_data = (self.cache.data_on(dev, version=look.version)
+                      if self.cache is not None else None)
+        if self.cache is not None:
+            self.cache.release_lookup(look)
+        return assemble_features(cache_data, miss, slots, miss_index)
+
+    def _stage_transfer(self, item: PipelineItem) -> PipelineItem:
+        p = item.payload
+        t0 = time.perf_counter()
+        streams = []
+        for name in list(p["features"]):
+            if name == "cpu":
+                dev, stream = self.cpu_device, None
+            else:
+                dev = self._accel_device(name)
+                stream = (self._transfer_stream(dev) if dev.type == "cuda"
+                          else None)
+            with torch.cuda.stream(stream):
+                feat = p["features"][name]
+                if isinstance(feat, MissBlock):
+                    x = self._assemble(feat, dev)
+                else:
+                    x = to_device(feat, dev)
+                p["features"][name] = x
+                p["minibatch"][name] = p["minibatch"][name].to(dev)
+            if stream is not None:
+                streams.append(stream)
+        for s in streams:
+            s.synchronize()
+        p["t"]["t_tran"] = time.perf_counter() - t0
+        return item
+
+    # ------------------------------------------------------------- training
+
+    def _grad(self, params: Params, batch: MiniBatch, x0: torch.Tensor
+              ) -> Tuple[Params, Dict[str, torch.Tensor]]:
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, acc = loss_fn(leaves, self.gnn_cfg, batch, x0)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return (dict(zip(leaves, grads)),
+                {"loss": loss.detach(), "acc": acc.detach()})
+
+    def _run_trainers(self, item: PipelineItem
+                      ) -> Tuple[Params, Dict[str, float], Dict[str, float]]:
+        p = item.payload
+        names = list(p["minibatch"])
+        sync = Synchronizer(len(names), self.device)
+        results: Dict[str, Dict[str, Any]] = {}
+        errors: List[BaseException] = []
+        host_params = ({k: v.to(self.cpu_device)
+                        for k, v in self.params.items()}
+                       if "cpu" in names else None)
+
+        def work(idx: int, name: str) -> None:
+            try:
+                kind = "cpu" if name == "cpu" else "accel"
+                dev = (self.cpu_device if kind == "cpu"
+                       else self._accel_device(name))
+                params = (host_params if kind == "cpu"
+                          else {k: v.to(dev) for k, v in self.params.items()})
+                handle = TrainerHandle(name=name, kind=kind, device=dev,
+                                       grad_fn=self._grad, index=idx)
+                results[name] = handle.run(
+                    sync, params, float(p["shares"][name]),
+                    p["minibatch"][name], p["features"][name])
+            except BaseException as e:  # re-raised on the training thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=work, args=(i, n))
+                   for i, n in enumerate(names)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        avg = sync.all_reduce()
+        # stage-time bookkeeping for the DRM engine
+        t_tc = max((m["t_train"] for n, m in results.items()
+                    if n == "cpu"), default=0.0)
+        t_ta = max((m["t_train"] for n, m in results.items()
+                    if n != "cpu"), default=0.0)
+        w = {n: float(p["shares"][n]) for n in results}
+        wsum = max(sum(w.values()), 1e-9)
+        loss = sum(float(m["loss"]) * w[n] for n, m in results.items()) / wsum
+        acc = sum(float(m["acc"]) * w[n] for n, m in results.items()) / wsum
+        return avg, {"t_tc": t_tc, "t_ta": t_ta}, {"loss": loss, "acc": acc}
+
+    def _apply_update(self, grads: Params) -> float:
+        t0 = time.perf_counter()
+        updates, self.opt_state = self.optimizer.update(
+            grads, self.opt_state, self.params)
+        self.params = apply_updates(self.params, updates)
+        synchronize(self.device)
+        return time.perf_counter() - t0
+
+    # ------------------------------------------- measured-hit-rate feedback
+
+    def _window_alpha(self, stats) -> float:
+        """Eq. 7/8 alpha from measured window stats: unique-miss /
+        positional-miss rows."""
+        miss_positions = stats.total_rows - stats.hit_rows
+        if not (self.cfg.dedup and miss_positions > 0):
+            return 1.0
+        dedup_saved_rows = stats.dedup_saved_bytes // self.cache.row_bytes
+        return 1.0 - dedup_saved_rows / miss_positions
+
+    def _reprice_mapping(self, measured: float, alpha: float) -> None:
+        """Re-run the initial task mapping with a measured hit rate and
+        alpha and hand the shares to the runtime (the DRM fine-tunes from
+        there)."""
+        mapping = initial_task_mapping(
+            PLATFORMS[self.cfg.host_platform],
+            PLATFORMS[self.cfg.accel_platform],
+            self.cfg.n_accel, self.cfg.total_batch,
+            self.gnn_cfg.fanouts, self.gnn_cfg.layer_dims,
+            model=self.gnn_cfg.model, cache_hit_rate=measured,
+            dedup_factor=alpha)
+        a = self.runtime.assignment
+        n = max(self.cfg.n_accel, 1)
+        a.accel_batch = mapping["accel_each"]
+        a.cpu_batch = self.cfg.total_batch - a.accel_batch * n
+        self._model_hit_rate = measured
+        self.measured_dedup_alpha = alpha
+
+    def _maybe_refresh_mapping(self) -> bool:
+        """When the loader's measured transfer-path hit rate drifts more
+        than ``cache_drift_threshold`` from the rate the mapping was priced
+        with, re-price it with the measured rate and alpha.  Returns True
+        when it did."""
+        if not (self.cfg.hybrid and self.cache is not None):
+            return False
+        stats = self.loader.snapshot("window")
+        if stats.total_rows == 0:
+            return False
+        measured = stats.hit_rate
+        if abs(measured - self._model_hit_rate) <= \
+                self.cfg.cache_drift_threshold:
+            return False
+        self._reprice_mapping(measured, self._window_alpha(stats))
+        return True
+
+    # ----------------------------------------------------------------- train
+
+    def train(self, num_iterations: int) -> List[IterationMetrics]:
+        stages = [Stage("sample", self._stage_sample),
+                  Stage("load", self._stage_load),
+                  Stage("transfer", self._stage_transfer)]
+        pipe = PrefetchPipeline(stages, depth=self.cfg.tfp_depth)
+        payloads = (self._make_payload(i) for i in range(num_iterations))
+        for item in pipe.run(payloads):
+            p = item.payload
+            grads, ttimes, metrics = self._run_trainers(item)
+            t_sync = self._apply_update(grads)
+            times = StageTimes(
+                t_sc=p["t"].get("t_sc", 0.0),
+                t_load=p["t"].get("t_load", 0.0),
+                t_tran=p["t"].get("t_tran", 0.0),
+                t_tc=ttimes["t_tc"], t_ta=ttimes["t_ta"])
+            self.runtime.end_iteration(times)
+            self._maybe_refresh_mapping()
+            edges = sum(mb.edges_traversed()
+                        for mb in p["minibatch"].values())
+            self.history.append(IterationMetrics(
+                iteration=p["iteration"], loss=metrics["loss"],
+                acc=metrics["acc"], times=times, t_sync=t_sync, edges=edges,
+                assignment=self.runtime.quantized_shares(),
+                shares=dict(p["shares"]),
+                cache_hit_rate=(self.cache.measured_hit_rate()
+                                if self.cache else 0.0)))
+        return self.history
+
+    def close(self) -> None:
+        """Release the loader's gather pool."""
+        self.loader.close()
+
+    # ------------------------------------------------------------- reporting
+
+    def mean_mteps(self, skip: int = 2) -> float:
+        hist = self.history[skip:] or self.history
+        return float(np.mean([m.mteps for m in hist]))
+
+    def mean_iter_time(self, skip: int = 2) -> float:
+        hist = self.history[skip:] or self.history
+        return float(np.mean([m.iter_time for m in hist]))
+
+    def feature_traffic(self) -> Dict[str, float]:
+        """Cumulative feature-movement accounting for the whole run (the
+        reference's keys that this slice can produce): ``shipped_bytes``
+        crossed host->device (unique misses plus bucket padding),
+        ``saved_bytes`` the cache absorbed, ``dedup_saved_bytes`` frontier
+        dedup absorbed, ``host_read_bytes`` the CPU trainer read in place.
+        Shipped (minus padding) + saved + dedup-saved rebuild the
+        one-row-per-position baseline."""
+        s = self.loader.snapshot()
+        host = self.loader.snapshot("host_stats")
+        baseline = (s.bytes - s.padding_bytes) + s.saved_bytes \
+            + s.dedup_saved_bytes
+        return {
+            "shipped_rows": float(s.rows),
+            "shipped_bytes": float(s.bytes),
+            "saved_bytes": float(s.saved_bytes),
+            "dedup_saved_bytes": float(s.dedup_saved_bytes),
+            "padding_bytes": float(s.padding_bytes),
+            "host_read_bytes": float(host.bytes),
+            "hit_rate": s.hit_rate,
+            "dup_factor": s.dup_factor,
+            "reduction": baseline / max(s.bytes, 1),
+        }

@@ -1,0 +1,23 @@
+"""Graph data layer of the port: storage -> sampler -> hot cache / loader
+-> models, as in ``repro.graph``."""
+from .storage import (CSRGraph, DATASET_STATS, TRAIN_SPLIT, DenseFeatures,
+                      FeatureSource, GraphDataset, HashedFeatures,
+                      as_feature_source, make_dataset, synth_powerlaw_graph)
+from .sampler import MiniBatch, NumpySampler, frontier_sizes
+from .featcache import (CacheLookup, CacheStats, FeatureCache, build_cache,
+                        compact_lookup, wire_row_bytes)
+from .featload import FeatureLoader, LoadStats, MissBlock
+from .models import (GNNConfig, forward, init_params, loss_fn, param_count,
+                     params_from_numpy)
+
+__all__ = [
+    "CSRGraph", "DATASET_STATS", "TRAIN_SPLIT", "DenseFeatures",
+    "FeatureSource", "GraphDataset", "HashedFeatures", "as_feature_source",
+    "make_dataset", "synth_powerlaw_graph",
+    "MiniBatch", "NumpySampler", "frontier_sizes",
+    "CacheLookup", "CacheStats", "FeatureCache", "build_cache",
+    "compact_lookup", "wire_row_bytes",
+    "FeatureLoader", "LoadStats", "MissBlock",
+    "GNNConfig", "forward", "init_params", "loss_fn", "param_count",
+    "params_from_numpy",
+]

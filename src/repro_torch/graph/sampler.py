@@ -1,0 +1,131 @@
+"""Mini-batch Sampler (paper Section III-A), host side.
+
+Port of ``repro/graph/sampler.py``: the GraphSAGE neighbor sampler (uniform
+with replacement, zero-degree nodes fall back to self-loops) in vectorized
+numpy.  For the same seed its batches are bit-equal to the reference's
+``NumpySampler``.
+
+A ``MiniBatch`` holds numpy arrays on the host; ``to(device)`` returns the
+same batch as torch tensors on a device.  The reference runs JAX with x64
+off, so its ids and degrees are int32: the host batch keeps the exact int64
+ids (what the loader gathers by) and ``to()`` ships degrees as int32 and
+labels as int64 (the dtype ``torch.gather`` indexes with).
+
+The "Sampling on Accelerator" path (``use_accel_sampler``) is not ported
+yet (ROADMAP, port queue).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import to_device
+from .storage import CSRGraph
+
+__all__ = ["MiniBatch", "NumpySampler", "frontier_sizes"]
+
+Array = Union[np.ndarray, torch.Tensor]
+
+
+@dataclasses.dataclass
+class MiniBatch:
+    """A fixed-shape L-hop sampled block structure.
+
+    ``frontier(l)`` = concat(targets, hop_src[0], ..., hop_src[l-1]); hop
+    ``l`` (1-based) has ``len(frontier[l-1]) * fanout[l-1]`` edges, dst local
+    index ``i // fanout``, src local index ``len(frontier[l-1]) + i``.
+    """
+
+    targets: Array               # [B]
+    labels: Array                # [B]
+    hop_src: Tuple[Array, ...]   # hop l: sampled source global ids
+    hop_src_deg: Tuple[Array, ...]  # true degree of each sampled source
+    hop_dst_deg: Tuple[Array, ...]  # true degree of each edge's dst
+    fanouts: Tuple[int, ...]
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.targets.shape[0])
+
+    def frontier(self, l: int) -> Array:
+        """Global ids of frontier ``l`` (0 = targets), concatenated layout."""
+        parts = [self.targets] + list(self.hop_src[:l])
+        if len(parts) == 1:
+            return self.targets
+        if isinstance(self.targets, torch.Tensor):
+            return torch.cat(parts)
+        return np.concatenate(parts)
+
+    def num_frontier(self, l: int) -> int:
+        return frontier_sizes(self.batch_size, self.fanouts)[l]
+
+    def edges_traversed(self) -> int:
+        """Total sampled edges (the paper's MTEPS numerator, Eq. 5)."""
+        return sum(int(s.shape[0]) for s in self.hop_src)
+
+    def to(self, device: torch.device) -> "MiniBatch":
+        """The batch as tensors on ``device`` (pinned, non-blocking copies
+        on CUDA)."""
+        def put(a: np.ndarray, dtype) -> torch.Tensor:
+            return to_device(np.ascontiguousarray(a, dtype=dtype), device)
+
+        return MiniBatch(
+            targets=put(self.targets, np.int64),
+            labels=put(self.labels, np.int64),
+            hop_src=tuple(put(s, np.int64) for s in self.hop_src),
+            hop_src_deg=tuple(put(d, np.int32) for d in self.hop_src_deg),
+            hop_dst_deg=tuple(put(d, np.int32) for d in self.hop_dst_deg),
+            fanouts=self.fanouts)
+
+
+def frontier_sizes(batch: int, fanouts: Sequence[int]) -> Tuple[int, ...]:
+    """frontier l size = batch * prod_{h<l}(1 + f_h)."""
+    out = [batch]
+    cur = batch
+    for f in fanouts:
+        cur = cur * (1 + f)
+        out.append(cur)
+    return tuple(out)
+
+
+class NumpySampler:
+    """Host-side vectorized neighbor sampler (paper's CPU Sampler thread)."""
+
+    def __init__(self, graph: CSRGraph, fanouts: Sequence[int] = (25, 10),
+                 seed: int = 0):
+        self.graph = graph
+        self.fanouts = tuple(int(f) for f in fanouts)
+        self._rng = np.random.default_rng(seed)
+        self._deg = np.diff(graph.indptr)
+
+    def _sample_hop(self, frontier: np.ndarray, fanout: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        deg = self._deg[frontier]
+        safe_deg = np.maximum(deg, 1)
+        r = self._rng.integers(0, 1 << 31,
+                               size=(frontier.shape[0], fanout))
+        offs = (r % safe_deg[:, None]) + self.graph.indptr[frontier][:, None]
+        src = self.graph.indices[offs].astype(np.int64)
+        src = np.where(deg[:, None] == 0, frontier[:, None], src)
+        return src.reshape(-1), deg
+
+    def sample(self, targets: np.ndarray, labels: np.ndarray) -> MiniBatch:
+        frontier = np.asarray(targets, dtype=np.int64)
+        hop_src, hop_sdeg, hop_ddeg = [], [], []
+        for f in self.fanouts:
+            src, dst_deg = self._sample_hop(frontier, f)
+            hop_src.append(src)
+            hop_ddeg.append(np.repeat(dst_deg, f))
+            hop_sdeg.append(self._deg[src])
+            frontier = np.concatenate([frontier, src])
+        return MiniBatch(
+            targets=np.asarray(targets, np.int64),
+            labels=np.asarray(labels, np.int32),
+            hop_src=tuple(hop_src),
+            hop_src_deg=tuple(hop_sdeg),
+            hop_dst_deg=tuple(hop_ddeg),
+            fanouts=self.fanouts,
+        )

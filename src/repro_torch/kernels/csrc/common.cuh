@@ -1,0 +1,37 @@
+// Shared helpers for the port's Hopper kernels (plain C interface, built by
+// kernels/build.py with nvcc for sm_90a and loaded through ctypes).
+//
+// Every entry point takes its CUDA stream as an opaque pointer (PyTorch's
+// current stream), launches asynchronously, allocates nothing, and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#define REPRO_API extern "C" __attribute__((visibility("default")))
+
+static inline bool aligned_to(const void* p, int64_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes)) == 0;
+}
+
+static inline cudaStream_t as_stream(void* stream) {
+  return reinterpret_cast<cudaStream_t>(stream);
+}
+
+static inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// f32 <-> storage-type conversions used by the reductions
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);  // round to nearest even, as torch's .to()
+}

@@ -1,0 +1,268 @@
+"""Device-dispatching wrappers around the port's Hopper kernels.
+
+Port of ``repro/kernels/ops.py`` (the combine, the segment sum and the fused
+layer).  The tensor's device decides the path: a CUDA tensor launches the
+hand-written kernel (``csrc/*.cu``, built on first use by ``build.py``) or
+raises; a CPU tensor runs the plain PyTorch version in ``ref.py``.  There is
+no fallback from a failed build or launch to the plain version.
+
+Each launch adds one to its kernel's counter (``kernel_launches()``), so a
+run can show that its main path went through the kernels.  The two layer
+kernels sit inside ``torch.autograd.Function``s whose backwards are the
+analytic VJPs of the reference (``repro/kernels/ops.py:343-357`` and
+``:458-480``), written as torch ops.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from . import ref
+from .build import library
+
+__all__ = ["assemble_features", "segment_weighted_sum_regular",
+           "fused_gnn_update", "kernel_launches", "reset_kernel_launches",
+           "KERNELS"]
+
+# kernel name -> the wrapper's counter; bumped only where a kernel launches
+KERNELS = ("cache_combine", "fused_update", "segment_sum")
+_launches: Dict[str, int] = {k: 0 for k in KERNELS}
+_launch_lock = threading.Lock()   # trainer threads launch concurrently
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches per kernel since the last reset."""
+    with _launch_lock:
+        return dict(_launches)
+
+
+def reset_kernel_launches() -> None:
+    with _launch_lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def _launch(kernel: str, symbol: str, *args) -> None:
+    """Call one C entry point on the current stream and count the launch;
+    a non-zero ``cudaGetLastError`` raises."""
+    lib = library(kernel)
+    rc = getattr(lib, symbol)(*args)
+    if rc != 0:
+        msg = getattr(lib, f"{kernel}_error_string")(rc)
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} "
+                           f"({msg.decode() if msg else '?'})")
+    with _launch_lock:
+        _launches[kernel] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_tensors(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """All on one device and contiguous (the kernels index raw pointers)."""
+    dev = next(t.device for t in tensors if t is not None)
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous tensors")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def _index(x: Union[np.ndarray, torch.Tensor],
+           device: torch.device) -> torch.Tensor:
+    t = torch.as_tensor(x)
+    return t.to(device=device, dtype=torch.int32).contiguous()
+
+
+# ------------------------------------------------------------------ combine
+
+_COMBINE_SYMBOL = {torch.float32: "cache_combine_f32",
+                   torch.bfloat16: "cache_combine_bf16"}
+
+
+def assemble_features(cache: Optional[torch.Tensor], miss: torch.Tensor,
+                      slots, miss_index) -> torch.Tensor:
+    """Assemble the positional layer-0 block from the device-resident hot
+    cache and the shipped unique-miss rows: ``out[i] = cache[slots[i]]``
+    when ``slots[i] >= 0`` else ``miss[miss_index[i]]`` (the paper's
+    Feature Duplicator, on the device after the interconnect).
+
+    ``cache=None`` is the cache-less dedup path (every slot is -1).  The
+    index tables may be host numpy or tensors; they are moved to the miss
+    block's device as int32.  No gradient: layer-0 inputs are data.
+    """
+    slots = _index(slots, miss.device)
+    miss_index = _index(miss_index, miss.device)
+    if _on_cpu(miss):
+        return ref.assemble_features(cache, miss, slots, miss_index)
+    if cache is not None and (cache.dtype != miss.dtype
+                              or cache.shape[1] != miss.shape[1]):
+        raise ValueError("cache and miss blocks differ in dtype or width")
+    symbol = _COMBINE_SYMBOL.get(miss.dtype)
+    if symbol is None:
+        raise TypeError(f"cache combine: unsupported dtype {miss.dtype}")
+    _check_tensors("assemble_features", cache, miss, slots, miss_index)
+    n, f = int(slots.shape[0]), int(miss.shape[1])
+    out = torch.empty((n, f), dtype=miss.dtype, device=miss.device)
+    if n == 0:
+        return out
+    _launch("cache_combine", symbol,
+            cache.data_ptr() if cache is not None else None,
+            miss.data_ptr() if miss.shape[0] else None,
+            slots.data_ptr(), miss_index.data_ptr(), out.data_ptr(),
+            n, f, _stream(miss))
+    return out
+
+
+# -------------------------------------------------------------- segment sum
+
+_SEGSUM_SYMBOL = {torch.float32: "segment_sum_f32",
+                  torch.bfloat16: "segment_sum_bf16"}
+
+
+def _segsum_forward(x_nbr: torch.Tensor, w_edge: torch.Tensor,
+                    fanout: int) -> torch.Tensor:
+    if _on_cpu(x_nbr):
+        return ref.segment_weighted_sum_regular(x_nbr, w_edge, fanout)
+    symbol = _SEGSUM_SYMBOL.get(x_nbr.dtype)
+    if symbol is None or w_edge.dtype != x_nbr.dtype:
+        raise TypeError(f"segment sum: unsupported dtypes {x_nbr.dtype}, "
+                        f"{w_edge.dtype}")
+    x_nbr, w_edge = x_nbr.contiguous(), w_edge.contiguous()
+    _check_tensors("segment_weighted_sum_regular", x_nbr, w_edge)
+    d, f = x_nbr.shape[0] // fanout, int(x_nbr.shape[1])
+    out = torch.empty((d, f), dtype=x_nbr.dtype, device=x_nbr.device)
+    _launch("segment_sum", symbol, x_nbr.data_ptr(), w_edge.data_ptr(),
+            out.data_ptr(), d, f, int(fanout), _stream(x_nbr))
+    return out
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_nbr, w_edge, fanout):
+        ctx.save_for_backward(x_nbr, w_edge)
+        ctx.fanout = fanout
+        return _segsum_forward(x_nbr, w_edge, fanout)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_nbr, w_edge = ctx.saved_tensors
+        g_rep = g.float().repeat_interleave(ctx.fanout, dim=0)
+        d_xn = d_we = None
+        if ctx.needs_input_grad[0]:
+            d_xn = (g_rep * w_edge.float()[:, None]).to(x_nbr.dtype)
+        if ctx.needs_input_grad[1]:
+            d_we = (g_rep * x_nbr.float()).sum(-1).to(w_edge.dtype)
+        return d_xn, d_we, None
+
+
+def segment_weighted_sum_regular(x_nbr: torch.Tensor, w_edge: torch.Tensor,
+                                 fanout: int) -> torch.Tensor:
+    """Regular-layout weighted segment sum, differentiable.
+
+    x_nbr: [D*fanout, F]; w_edge: [D*fanout] -> [D, F]:
+    ``out[d] = sum_j w_edge[d*fanout+j] * x_nbr[d*fanout+j]`` in f32.
+    """
+    return _SegmentSum.apply(x_nbr, w_edge, int(fanout))
+
+
+# ------------------------------------------------------------- fused layer
+
+
+def _fused_forward(x_self, x_nbr, w_edge, self_scale, w_self, w_agg, bias,
+                   fanout: int) -> torch.Tensor:
+    if _on_cpu(x_self):
+        return ref.fused_gnn_update(x_self, x_nbr, w_edge, self_scale,
+                                    w_self, w_agg, bias, fanout)
+    ts = [x_self, x_nbr, w_edge, self_scale, w_self, w_agg, bias]
+    if any(t is not None and t.dtype != torch.float32 for t in ts):
+        raise TypeError("fused GNN layer kernel takes float32 tensors")
+    x_self, x_nbr, w_edge, self_scale, w_self, w_agg = (
+        t.contiguous() for t in ts[:6])
+    bias = bias.contiguous() if bias is not None else None
+    _check_tensors("fused_gnn_update", x_self, x_nbr, w_edge, self_scale,
+                  w_self, w_agg, bias)
+    d, f = (int(s) for s in x_self.shape)
+    o = int(w_self.shape[1])
+    if x_nbr.shape != (d * fanout, f) or w_agg.shape != w_self.shape \
+            or w_self.shape[0] != f:
+        raise ValueError("fused GNN layer: inconsistent shapes")
+    out = torch.empty((d, o), dtype=torch.float32, device=x_self.device)
+    _launch("fused_update", "fused_update_f32",
+            x_self.data_ptr(), x_nbr.data_ptr(), w_edge.data_ptr(),
+            self_scale.data_ptr(), w_self.data_ptr(), w_agg.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            d, f, o, int(fanout), _stream(x_self))
+    return out
+
+
+class _FusedUpdate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_self, x_nbr, w_edge, self_scale, w_self, w_agg, bias,
+                fanout):
+        ctx.save_for_backward(x_self, x_nbr, w_edge, self_scale, w_self,
+                              w_agg)
+        ctx.fanout = fanout
+        ctx.has_bias = bias is not None
+        return _fused_forward(x_self, x_nbr, w_edge, self_scale, w_self,
+                              w_agg, bias, fanout)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_self, x_nbr, w_edge, self_scale, w_self, w_agg = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        fanout = ctx.fanout
+        g32 = g.float()
+        xs32 = x_self.float()
+        ss32 = self_scale.float()
+        d_xs = d_xn = d_we = d_ss = d_wself = d_wagg = d_b = None
+        if need[0] or need[3]:
+            gws = g32 @ w_self.float().T                          # [D, F]
+            if need[0]:
+                d_xs = (gws * ss32[:, None]).to(x_self.dtype)
+            if need[3]:
+                d_ss = (gws * xs32).sum(-1).to(self_scale.dtype)
+        if need[4]:
+            d_wself = ((xs32 * ss32[:, None]).T @ g32).to(w_self.dtype)
+        if need[5]:
+            # recompute the aggregation once (cheap next to the products)
+            agg = ref.segment_weighted_sum_regular(x_nbr, w_edge,
+                                                   fanout).float()
+            d_wagg = (agg.T @ g32).to(w_agg.dtype)
+        if need[1] or need[2]:
+            d_agg_rep = (g32 @ w_agg.float().T).repeat_interleave(fanout,
+                                                                  dim=0)
+            if need[1]:
+                d_xn = (d_agg_rep * w_edge.float()[:, None]).to(x_nbr.dtype)
+            if need[2]:
+                d_we = (d_agg_rep * x_nbr.float()).sum(-1).to(w_edge.dtype)
+        if ctx.has_bias and need[6]:
+            d_b = g32.sum(0).to(w_self.dtype)
+        return d_xs, d_xn, d_we, d_ss, d_wself, d_wagg, d_b, None
+
+
+def fused_gnn_update(x_self: torch.Tensor, x_nbr: torch.Tensor,
+                     w_edge: torch.Tensor, self_scale: torch.Tensor,
+                     w_self: torch.Tensor, w_agg: torch.Tensor,
+                     bias: Optional[torch.Tensor],
+                     fanout: int) -> torch.Tensor:
+    """Fused aggregate+update GNN layer (paper Section IV-C datapath),
+    differentiable:
+    ``(self_scale ⊙ x_self) @ w_self + segsum(w_edge ⊙ x_nbr) @ w_agg + b``.
+    """
+    return _FusedUpdate.apply(x_self, x_nbr, w_edge, self_scale, w_self,
+                              w_agg, bias, int(fanout))

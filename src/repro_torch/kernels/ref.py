@@ -1,0 +1,80 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Port of ``repro/kernels/ref.py``.  These are the functions the Hopper
+kernels in ``csrc/`` compute, written as ordinary torch ops: the wrappers in
+``ops.py`` run them for tensors on the CPU, and the card's tests and
+``chip_smoke.py`` hold each kernel against them on the same inputs.
+
+* ``assemble_features`` — the cache combine (Feature Duplicator):
+  ``out[i] = cache[slots[i]]`` if ``slots[i] >= 0`` else
+  ``miss[miss_index[i]]``; a pure data movement, so kernel and plain
+  version agree bit for bit.
+* ``segment_weighted_sum_regular`` — the regular-layout aggregation: each
+  destination owns ``fanout`` contiguous edge slots, weighted-summed in f32.
+* ``fused_gnn_update`` — aggregation fused with the update:
+  ``(self_scale ⊙ x_self) @ w_self + agg @ w_agg + bias`` in f32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["assemble_features", "expand_rows",
+           "segment_weighted_sum_regular", "fused_gnn_update"]
+
+
+def assemble_features(cache: Optional[torch.Tensor], miss: torch.Tensor,
+                      slots: torch.Tensor,
+                      miss_index: torch.Tensor) -> torch.Tensor:
+    """Cache-combine: ``out[i] = cache[slots[i]]`` when ``slots[i] >= 0``
+    else ``miss[miss_index[i]]``.  Many positions may share one source row.
+
+    cache: [K, F] or None (every position is a miss); miss: [M, F] (may be
+    empty when every position hits); slots/miss_index: int [N] -> [N, F].
+    """
+    f = miss.shape[1] if cache is None else cache.shape[1]
+    dtype = miss.dtype if cache is None else cache.dtype
+    if cache is None:
+        cache = torch.zeros((1, f), dtype=dtype, device=miss.device)
+    if miss.shape[0] == 0:
+        miss = torch.zeros((1, f), dtype=dtype, device=cache.device)
+    slots = slots.long()
+    hit = slots >= 0
+    from_cache = cache[slots.clamp_min(0)]
+    from_miss = miss[miss_index.long()]
+    return torch.where(hit[:, None], from_cache, from_miss)
+
+
+def expand_rows(rows: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
+    """Dedup expansion: ``out[i] = rows[inverse[i]]`` (the cache-less
+    combine)."""
+    return rows[inverse.long()]
+
+
+def segment_weighted_sum_regular(x_nbr: torch.Tensor, w_edge: torch.Tensor,
+                                 fanout: int) -> torch.Tensor:
+    """x_nbr: [D*fanout, F]; w_edge: [D*fanout] -> [D, F] (f32 accumulation,
+    cast back to x_nbr's dtype)."""
+    d = x_nbr.shape[0] // fanout
+    xn = x_nbr.reshape(d, fanout, -1).float()
+    we = w_edge.reshape(d, fanout, 1).float()
+    return (xn * we).sum(dim=1).to(x_nbr.dtype)
+
+
+def fused_gnn_update(x_self: torch.Tensor, x_nbr: torch.Tensor,
+                     w_edge: torch.Tensor, self_scale: torch.Tensor,
+                     w_self: torch.Tensor, w_agg: torch.Tensor,
+                     bias: Optional[torch.Tensor],
+                     fanout: int) -> torch.Tensor:
+    """out = (self_scale ⊙ x_self) @ w_self + segsum(w ⊙ x_nbr) @ w_agg + b.
+
+    x_self: [D, F]; x_nbr: [D*fanout, F]; w_edge: [D*fanout];
+    self_scale: [D]; w_self/w_agg: [F, O]; bias: [O] -> [D, O].
+    """
+    agg = segment_weighted_sum_regular(x_nbr, w_edge, fanout).float()
+    xs = x_self.float() * self_scale.float()[:, None]
+    out = xs @ w_self.float() + agg @ w_agg.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x_self.dtype)

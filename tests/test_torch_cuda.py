@@ -1,0 +1,137 @@
+"""The port's hand-written kernels and its trainer on a CUDA card.
+
+Every case needs the card: the kernels have no interpret mode, so on a host
+without one the ``cuda`` fixture skips them (they count as no pass there).
+On the card, run this file alone:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
+
+It imports neither JAX nor the reference package, which the card's
+machine does not have.  Each kernel is held against its plain version on
+the same inputs: the combine bit-equal, the segment sum rtol=atol=1e-5 in
+f32 (1e-2 in bf16: one rounding of the sum), the fused layer and every
+gradient rtol=atol=1e-4 (fp32 sums in another order than cuBLAS).
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import HybridConfig, HybridGNNTrainer
+from repro_torch.graph import GNNConfig, make_dataset
+from repro_torch.kernels import ops, ref
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no "
+                    "interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _randn(gen, *shape, device):
+    return torch.randn(*shape, generator=gen).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [100, 7])
+def test_combine_bit_equal(cuda, dtype, f):
+    rng = np.random.default_rng(f)
+    k, m, n = 700, 300, 5000
+    cache = torch.from_numpy(rng.standard_normal((k, f)).astype(
+        np.float32)).to(cuda, dtype)
+    miss = torch.from_numpy(rng.standard_normal((m, f)).astype(
+        np.float32)).to(cuda, dtype)
+    slots = torch.from_numpy(rng.integers(-1, k, n).astype(np.int32))
+    mi = torch.from_numpy(np.where(slots.numpy() < 0,
+                                   rng.integers(0, m, n), 0).astype(np.int32))
+    slots, mi = slots.to(cuda), mi.to(cuda)
+    before = ops.kernel_launches()["cache_combine"]
+    got = ops.assemble_features(cache, miss, slots, mi)
+    assert ops.kernel_launches()["cache_combine"] == before + 1
+    assert torch.equal(got, ref.assemble_features(cache, miss, slots, mi))
+    got = ops.assemble_features(None, miss, torch.full_like(mi, -1), mi)
+    assert torch.equal(got, ref.expand_rows(miss, mi))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,fanout,f", [(3000, 10, 100), (300, 25, 256),
+                                        (77, 3, 7)])
+def test_segment_sum_matches_plain(cuda, dtype, d, fanout, f):
+    gen = torch.Generator().manual_seed(d)
+    xn = _randn(gen, d * fanout, f, device=cuda).to(dtype)
+    we = torch.rand(d * fanout, generator=gen).to(cuda, dtype)
+    got = ops.segment_weighted_sum_regular(xn, we, fanout)
+    want = ref.segment_weighted_sum_regular(xn, we, fanout)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if dtype == torch.float32:
+        ins = [xn.clone().requires_grad_(), we.clone().requires_grad_()]
+        g = _randn(gen, d, f, device=cuda)
+        a = torch.autograd.grad(ops.segment_weighted_sum_regular(*ins,
+                                                                 fanout),
+                                ins, g)
+        ins = [t.detach().clone().requires_grad_() for t in ins]
+        b = torch.autograd.grad(ref.segment_weighted_sum_regular(*ins,
+                                                                 fanout),
+                                ins, g)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,fanout,f,o", [(9000, 10, 100, 256),
+                                          (300, 25, 256, 47),
+                                          (50, 3, 33, 300)])
+def test_fused_layer_and_grads_match_plain(cuda, d, fanout, f, o):
+    gen = torch.Generator().manual_seed(o)
+    args = [_randn(gen, d, f, device=cuda),
+            _randn(gen, d * fanout, f, device=cuda),
+            torch.rand(d * fanout, generator=gen).to(cuda),
+            torch.rand(d, generator=gen).to(cuda),
+            _randn(gen, f, o, device=cuda) / f ** 0.5,
+            _randn(gen, f, o, device=cuda) / f ** 0.5,
+            _randn(gen, o, device=cuda)]
+    torch.testing.assert_close(ops.fused_gnn_update(*args, fanout),
+                               ref.fused_gnn_update(*args, fanout),
+                               rtol=1e-4, atol=1e-4)
+    g = _randn(gen, d, o, device=cuda)
+    ins = [a.clone().requires_grad_() for a in args]
+    ka = torch.autograd.grad(ops.fused_gnn_update(*ins, fanout), ins, g)
+    ins = [a.clone().requires_grad_() for a in args]
+    kb = torch.autograd.grad(ref.fused_gnn_update(*ins, fanout), ins, g)
+    for x, y in zip(ka, kb):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("agg_impl", ["kernel_fused", "kernel"])
+def test_trainer_on_card_matches_host(cuda, agg_impl):
+    ds = make_dataset("ogbn-products", scale=0.01, seed=0)
+    g = GNNConfig(model="gcn", layer_dims=(100, 64, 47), fanouts=(10, 5),
+                  agg_impl=agg_impl)
+    cfg = HybridConfig(total_batch=512, use_drm=False, tfp_depth=0,
+                       cache_fraction=0.2, accel_platform="rtx-a5000")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = HybridGNNTrainer(ds, g, cfg, device=dev)
+        if dev == "cpu":
+            tr.set_params(runs["cuda"][2])
+        params0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        ops.reset_kernel_launches()
+        hist = tr.train(3)
+        tr.close()
+        accel_iters = sum(1 for m in hist if m.shares.get("accel0", 0))
+        runs[dev] = ([m.loss for m in hist], ops.kernel_launches(), params0,
+                     tr.feature_traffic(), accel_iters)
+    assert all(math.isfinite(x) for x in runs["cuda"][0])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-3)
+    assert runs["cuda"][3] == runs["cpu"][3]
+    launches, accel_iters = runs["cuda"][1], runs["cuda"][4]
+    assert accel_iters > 0
+    assert launches["cache_combine"] == accel_iters
+    key = "fused_update" if agg_impl == "kernel_fused" else "segment_sum"
+    assert launches[key] == 2 * accel_iters
+    assert runs["cpu"][1] == {k: 0 for k in ops.KERNELS}

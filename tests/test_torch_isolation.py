@@ -1,0 +1,119 @@
+"""The PyTorch/CUDA port stands alone: it imports nothing of JAX or of the
+reference package, its entry points refuse to run without CUDA unless asked
+for the host, and every knob outside the ported slice raises."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import HybridConfig, HybridGNNTrainer
+from repro_torch.graph import GNNConfig, make_dataset
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_nor_reference(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == [], f"{path} imports {bad}"
+
+
+def test_cpu_trainer_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "from repro_torch.core import HybridConfig, HybridGNNTrainer\n"
+        "from repro_torch.graph import GNNConfig, make_dataset\n"
+        "ds = make_dataset('ogbn-products', scale=0.0005, seed=0)\n"
+        "g = GNNConfig(layer_dims=(100, 16, 47), fanouts=(3, 2),\n"
+        "              agg_impl='pallas_fused')\n"
+        "cfg = HybridConfig(total_batch=128, cache_fraction=0.2,\n"
+        "                   accel_platform='rtx-a5000')\n"
+        "tr = HybridGNNTrainer(ds, g, cfg, device='cpu')\n"
+        "tr.train(2)\n"
+        "tr.close()\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_default_device_requires_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_trainer_default_device_requires_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = make_dataset("ogbn-products", scale=0.0005, seed=0)
+    g = GNNConfig(layer_dims=(100, 16, 47), fanouts=(3, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HybridGNNTrainer(ds, g, HybridConfig(total_batch=64))
+
+
+@pytest.mark.parametrize("knob", [
+    {"use_accel_sampler": True},
+    {"cache_sharding": "sharded"},
+    {"cache_refresh": True},
+    {"async_refresh": True},
+    {"recent_rows_batches": 2},
+    {"prefetch_windows": 2},
+    {"mmap_lru_windows": 4},
+    {"auto_tune": True},
+    {"compression": "int8"},
+    {"kernel_pipeline_depth": 2},
+    {"ckpt_every": 5},
+    {"pipeline_watchdog_seconds": 1.0},
+], ids=lambda k: next(iter(k)))
+def test_out_of_slice_knob_raises(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        HybridConfig(**knob)
+
+
+def test_fault_injector_raises():
+    ds = make_dataset("ogbn-products", scale=0.0005, seed=0)
+    g = GNNConfig(layer_dims=(100, 16, 47), fanouts=(3, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        HybridGNNTrainer(ds, g, HybridConfig(total_batch=64), device="cpu",
+                         fault_injector=object())
+
+
+@pytest.mark.parametrize("backend", ["partitioned", "mmap"])
+def test_unported_feature_backend_raises(backend):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_dataset("ogbn-products", scale=0.0005, feature_backend=backend)
+
+
+def test_unknown_agg_impl_and_dtype_rejected():
+    with pytest.raises(ValueError):
+        GNNConfig(agg_impl="cutlass")
+    with pytest.raises(ValueError):
+        HybridConfig(feature_dtype="float16")

@@ -1,0 +1,208 @@
+"""The port's CUDA sources, run on the host.
+
+There is no nvcc or card here, so each ``csrc/*.cu`` file is compiled with
+the host C++ compiler against a small header that emulates the CUDA
+builtins the kernels use: a block runs as ``blockDim`` std::threads with a
+std::barrier for ``__syncthreads``, and ``kernel<<<grid, block, ...>>>``
+becomes a loop over the grid.  The wrappers in ``kernels.ops`` then drive
+these builds through the same ctypes entry points (argument types, pointers,
+shapes) and are held against the plain versions: the combine bit-equal, the
+segment sum and the fused layer within rtol=1e-5 / 1e-4.  This checks the
+kernels' index math, masking and tile choice; it says nothing about speed
+or about what nvcc accepts, which only the card shows.
+"""
+import re
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, ops, ref
+
+CUDA_RUNTIME_H = r"""
+#pragma once
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(x)
+#define __restrict__ __restrict
+typedef int cudaError_t;
+enum { cudaSuccess = 0 };
+typedef struct CUstream_st* cudaStream_t;
+struct dim3 { unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+inline std::barrier<>* emu_barrier = nullptr;
+inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d}; }
+template <class T> T __ldg(const T* p) { return *p; }
+template <class F> void emu_launch(dim3 grid, dim3 block, F f) {
+  gridDim = grid; blockDim = block;
+  const unsigned nt = block.x * block.y * block.z;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+  for (unsigned by = 0; by < grid.y; ++by)
+  for (unsigned bx = 0; bx < grid.x; ++bx) {
+    std::barrier<> bar(nt);
+    emu_barrier = &bar;
+    std::vector<std::thread> ts;
+    for (unsigned t = 0; t < nt; ++t)
+      ts.emplace_back([&, t] {
+        blockIdx = dim3(bx, by, bz);
+        threadIdx = dim3(t % block.x, (t / block.x) % block.y,
+                         t / (block.x * block.y));
+        f();
+        bar.arrive_and_drop();
+      });
+    for (auto& th : ts) th.join();
+  }
+}
+"""
+
+CUDA_BF16_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { unsigned short x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = uint32_t(b.x) << 16; float f; std::memcpy(&f, &u, 4);
+  return f; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4);
+  __nv_bfloat16 b; b.x = (unsigned short)((u + 0x7FFF + ((u >> 16) & 1))
+                                         >> 16);
+  return b; }
+inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
+inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
+"""
+
+_LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+
+
+def _emulated(src: str) -> str:
+    def repl(m):
+        grid, block = [c.strip() for c in m.group(2).split(",")][:2]
+        return (f"emu_launch(dim3({grid}), dim3({block}), "
+                f"[&]{{ {m.group(1)}({m.group(3)}); }});")
+    return _LAUNCH.sub(repl, src)
+
+
+@pytest.fixture(scope="module")
+def emulated_ops(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the "
+                    "CUDA sources")
+    out = tmp_path_factory.mktemp("cuda_emu")
+    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    shutil.copy(build.CSRC / "common.cuh", out / "common.cuh")
+
+    def compile_one(name):
+        src = out / f"{name}.cpp"
+        src.write_text(_emulated((build.CSRC / f"{name}.cu").read_text()))
+        lib = out / f"lib{name}.so"
+        subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                        "-pthread", "-I", str(out), str(src), "-o",
+                        str(lib)], check=True, capture_output=True,
+                       timeout=300)
+        return name, build._bind(name, lib)
+
+    with ThreadPoolExecutor(3) as pool:
+        libs = dict(pool.map(compile_one, ops.KERNELS))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ops, "library", libs.__getitem__)
+    mp.setattr(ops, "_on_cpu", lambda t: False)
+    mp.setattr(ops, "_stream", lambda t: None)
+    ops.reset_kernel_launches()
+    yield ops
+    mp.undo()
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else \
+        t.view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [100, 7, 16])
+@pytest.mark.parametrize("case", ["mixed", "no_cache", "all_hit"])
+def test_emulated_combine_bit_equal(emulated_ops, dtype, f, case):
+    rng = np.random.default_rng(f)
+    k, m, n = 40, 13, 200
+    cache = torch.from_numpy(rng.standard_normal((k, f)).astype(
+        np.float32)).to(dtype)
+    cache[0, :2] = torch.tensor([-0.0, 0.0])
+    miss = torch.from_numpy(rng.standard_normal((m, f)).astype(
+        np.float32)).to(dtype)
+    slots = rng.integers(-1, k, n).astype(np.int32)
+    if case == "no_cache":
+        cache, slots = None, np.full(n, -1, np.int32)
+    if case == "all_hit":
+        slots, miss = rng.integers(0, k, n).astype(np.int32), miss[:0]
+    mi = np.where(slots < 0, rng.integers(0, max(m, 1), n), 0).astype(
+        np.int32)
+    got = emulated_ops.assemble_features(cache, miss, slots, mi)
+    want = ref.assemble_features(cache, miss, torch.from_numpy(slots),
+                                 torch.from_numpy(mi))
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,fanout,f", [(37, 5, 100), (20, 3, 7),
+                                        (9, 10, 256)])
+def test_emulated_segment_sum(emulated_ops, dtype, d, fanout, f):
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(d * fanout, f, generator=g).to(dtype)
+    w = torch.rand(d * fanout, generator=g).to(dtype)
+    got = emulated_ops.segment_weighted_sum_regular(x, w, fanout)
+    want = ref.segment_weighted_sum_regular(x, w, fanout)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-2)     # one bf16 rounding of the sum
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("d,fanout,f,o", [
+    (300, 10, 100, 256),     # layer-1 widths, short tiles
+    (37, 5, 100, 47),        # layer-2 widths
+    (20, 3, 7, 5),           # everything ragged
+    (9, 4, 33, 300),         # two column tiles
+    (8448, 2, 20, 40)])      # enough rows for the tall-tile variant
+@pytest.mark.parametrize("bias", [True, False])
+def test_emulated_fused_layer(emulated_ops, d, fanout, f, o, bias):
+    g = torch.Generator().manual_seed(o)
+    xs, xn = torch.randn(d, f, generator=g), torch.randn(d * fanout, f,
+                                                         generator=g)
+    we, ss = torch.rand(d * fanout, generator=g), torch.rand(d, generator=g)
+    ws = torch.randn(f, o, generator=g) / f ** 0.5
+    wa = torch.randn(f, o, generator=g) / f ** 0.5
+    b = torch.randn(o, generator=g) if bias else None
+    got = emulated_ops.fused_gnn_update(xs, xn, we, ss, ws, wa, b, fanout)
+    want = ref.fused_gnn_update(xs, xn, we, ss, ws, wa, b, fanout)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_emulated_launches_are_counted(emulated_ops):
+    before = emulated_ops.kernel_launches()
+    x = torch.randn(12, 8)
+    emulated_ops.segment_weighted_sum_regular(x, torch.rand(12), 3)
+    after = emulated_ops.kernel_launches()
+    assert after["segment_sum"] == before["segment_sum"] + 1
+    assert after["cache_combine"] == before["cache_combine"]
