@@ -13,8 +13,11 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
   env          versions, the card, nvcc, kernel build time
   kernels      K1 combine (f32, bf16: bit-equal), K2 fused layer (SAGE split
                W, GCN shared W) and K3 segment sum (f32, bf16) against their
-               plain versions, K2/K3 gradients against plain autograd, and
-               each kernel's time, plain time, library time and bound
+               plain versions, K2/K3 gradients against plain autograd, K5/K6
+               refresh scatter (depths 1, 2, 4; f32, bf16; the slots and
+               rows of a real first commit, plus aliased slots: bit-equal to
+               the plain keep-last scatter and to K5), and each kernel's
+               time, plain time, library time and bound
   train        ~10 iterations of the slice on the card; asserts finite
                losses, an accelerator share on every iteration, CUDA inputs
                and parameters, and K1/K2 launches on every accel iteration
@@ -22,6 +25,14 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
                iterations on the card and on the host from the same weights:
                losses within 1e-3, feature traffic equal
   segsum       gcn-products with agg_impl="pallas" (K3) for 3 iterations
+  refresh      (a) the slice with cache_refresh=True, drift threshold 0, 6
+               iterations: finite losses, cache version > 0, K5 launched,
+               each stage/commit's wall time; (b) accel-only, refresh on vs
+               off from the same weights, 4 iterations: layer-0 inputs and
+               losses bit-equal; (c) async_refresh=True commits and matches
+               (b)'s losses; (d) FeatureCache commits at
+               kernel_pipeline_depth 2 and 4 launch K6 and give the depth-1
+               device block bit for bit
 
 then the card's name and power limit as nvidia-smi prints them, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -54,7 +65,13 @@ K_SOURCES = {
                      "src/repro/kernels/gather_scatter_mm.py:125"),
     "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
                     "src/repro/kernels/gather_scatter_mm.py:73"),
+    "cache_update": ("src/repro_torch/kernels/csrc/cache_update.cu",
+                     "src/repro/kernels/gather_scatter_mm.py:229"),
+    "cache_update_pipelined": ("src/repro_torch/kernels/csrc/cache_update.cu",
+                               "src/repro/kernels/gather_scatter_mm.py:493"),
 }
+K6_DEPTHS = (2, 4)           # K6's line reports depth 2; the phase has both
+STAGES = ("t_sc", "t_load", "t_tran", "t_tc", "t_ta")
 
 
 def emit(phase: str, **fields) -> None:
@@ -313,8 +330,79 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
               bound_ms=bound, bound_by="bytes", bytes=b3_total,
               flops=fl3_total)
     out["segment_sum"] = k3
+    out.update(refresh_scatter(trainer, b, peak_bw, dev))
     emit("kernels", b=b, platform=platform, **out)
     return out
+
+
+def first_commit(trainer, b: int):
+    """The (slots, rows) of a real first commit at full width: a fresh
+    cache of the trainer's size sees two real batches' frontiers and
+    refreshes once on the host.  Returns the pre-commit block, the slots
+    whose row changed and the admitted rows (transfer dtype)."""
+    from repro_torch.graph import build_cache
+    ds = trainer.dataset
+    cache = build_cache(ds, trainer.cfg.cache_fraction)
+    cache.track_hotness = True
+    for seed in (7, 8):
+        _, look, _ = main_path_inputs(trainer, b, seed=seed)
+        cache.record_lookup(look)
+    before_ids, before = cache.cached_ids, cache.host_rows
+    moved = cache.refresh()
+    slots = np.flatnonzero(cache.cached_ids != before_ids).astype(np.int32)
+    check(moved > 0 and slots.size == moved, "the first commit moved no rows")
+    rows = cache.host_rows[torch.from_numpy(slots).long()]
+    return before, slots, rows
+
+
+def refresh_scatter(trainer, b: int, peak_bw: float, dev) -> dict:
+    """K5 and K6 against the plain keep-last scatter on a real first
+    commit (f32 and bf16, with up to 1000 aliased slots appended), and their
+    times on the commit's unique slots in f32."""
+    from repro_torch.kernels import ops, ref
+    block, slots, rows = first_commit(trainer, b)
+    rng = np.random.default_rng(0)
+    dup = rng.choice(slots.size, min(1000, slots.size), replace=False)
+    slots_d = np.concatenate([slots, slots[dup]])
+    extra = torch.from_numpy(rng.standard_normal((dup.size, rows.shape[1]))
+                             .astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        cache = block.to(dev, dtype)
+        rows_d = torch.cat([rows.to(dtype), extra.to(dtype)]).to(dev)
+        want = ref.cache_update(cache, rows_d,
+                                torch.from_numpy(slots_d).to(dev))
+        for depth in (1, *K6_DEPTHS):
+            got = ops.update_cache_rows(cache, rows_d, slots_d, depth)
+            check(torch.equal(got, want),
+                  f"K{5 if depth == 1 else 6} depth {depth} {dtype} not "
+                  f"bit-equal to the plain scatter")
+    m, f = slots.size, rows.shape[1]
+    cache = block.to(dev)
+    rows32 = rows.to(dev)
+    slots_t = torch.from_numpy(slots).to(dev)
+    slots_l = slots_t.long()
+    mp = -(-m // ops.UPDATE_ROW_BLOCK) * ops.UPDATE_ROW_BLOCK
+    rows_p = torch.zeros(mp, f, device=dev)
+    rows_p[:m] = rows32
+    out = cache.clone()
+    byts = 2 * m * f * 4 + m * 4     # rows read, rows written, slots
+    bound = byts / peak_bw * 1e3
+    plain = time_ms(lambda: ref.cache_update(cache, rows32, slots_t))
+    lib = time_ms(lambda: out.index_copy_(0, slots_l, rows32))
+    res = {}
+    for depth in (1, *K6_DEPTHS):
+        src_rows = rows32 if depth == 1 else rows_p
+        ms = time_ms(lambda: ops.scatter_rows_(out, src_rows, slots_t, depth))
+        res[depth] = ms
+    check(torch.equal(out, ref.cache_update(cache, rows32, slots_t)),
+          "timed scatters left a wrong block")
+    common = dict(max_abs_err=0.0, rows=m, f=f, bytes=byts, flops=0,
+                  plain_ms=plain, library_ms=lib, bound_ms=bound,
+                  bound_by="bytes")
+    return {"cache_update": dict(name="cache_update", ms=res[1], **common),
+            "cache_update_pipelined": dict(
+                name="cache_update_pipelined", ms=res[K6_DEPTHS[0]],
+                ms_by_depth={d: res[d] for d in K6_DEPTHS}, **common)}
 
 
 def phase_train(tr, iters: int) -> dict:
@@ -344,14 +432,144 @@ def phase_train(tr, iters: int) -> dict:
     rows = [dict(it=m.iteration, loss=m.loss, shares=m.shares,
                  assignment=m.assignment, mteps=m.mteps,
                  iter_s=m.iter_time, t_sync=m.t_sync,
-                 **{k: getattr(m.times, k) for k in
-                    ("t_sc", "t_load", "t_tran", "t_tc", "t_ta")})
+                 **{k: getattr(m.times, k) for k in STAGES})
             for m in hist]
     res = dict(iters=len(hist), wall_s=wall, launches=launches,
                mean_mteps=tr.mean_mteps(), mean_iter_s=tr.mean_iter_time(),
                feature_traffic=tr.feature_traffic(), history=rows)
     emit("train", **res)
     return res
+
+
+def timed_refresh(cache, log: list) -> None:
+    """Record the wall time of each stage() and commit() of ``cache``
+    (a commit is timed to the end of its device work)."""
+    stage, commit = cache.stage, cache.commit
+
+    def timed_stage(*a, **k):
+        t0 = time.perf_counter()
+        n = stage(*a, **k)
+        log.append(dict(call="stage", planned=n,
+                        s=time.perf_counter() - t0))
+        return n
+
+    def timed_commit():
+        t0 = time.perf_counter()
+        n = commit()
+        torch.cuda.synchronize()
+        log.append(dict(call="commit", swapped=n, version=cache.version,
+                        s=time.perf_counter() - t0))
+        return n
+
+    cache.stage, cache.commit = timed_stage, timed_commit
+
+
+def phase_refresh(ds, sage, slice_cfg, dev: torch.device) -> dict:
+    from repro_torch.core import HybridGNNTrainer
+    from repro_torch.graph import build_cache
+    from repro_torch.kernels import ops
+
+    # (a) the slice with the dynamic cache refreshing at every boundary
+    cfg_a = dataclasses.replace(slice_cfg, cache_refresh=True,
+                                cache_drift_threshold=0.0)
+    tr = HybridGNNTrainer(ds, sage, cfg_a)
+    log: list = []
+    timed_refresh(tr.cache, log)
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    hist = tr.train(6)
+    wall_a = time.perf_counter() - t0
+    launches_a = ops.kernel_launches()
+    tr.close()
+    check(all(math.isfinite(m.loss) for m in hist), "refresh: non-finite loss")
+    check(hist[-1].cache_version > 0, "refresh: the cache version never moved")
+    check(tr.cache.refresh_swapped_rows > 0, "refresh: no rows moved")
+    check(launches_a["cache_update"] >= 1, f"K5 launches {launches_a}")
+    res = dict(a=dict(launches=launches_a, commits=log, wall_s=wall_a,
+                      versions=[m.cache_version for m in hist],
+                      swapped_rows=tr.cache.refresh_swapped_rows,
+                      losses=[m.loss for m in hist],
+                      shares=[m.shares for m in hist],
+                      iter_s=[m.iter_time for m in hist],
+                      stages=[{k: getattr(m.times, k) for k in STAGES}
+                              for m in hist],
+                      feature_traffic=tr.feature_traffic()))
+
+    # (b) accel-only, refresh on vs off from the same weights: the layer-0
+    # input of every iteration and every loss bit-equal; (c) async refresh
+    # commits and gives the same losses
+    cfg_b = dataclasses.replace(slice_cfg, hybrid=False, use_drm=False,
+                                cache_drift_threshold=0.0)
+    runs = {}
+    weights = None
+    for name, kw in (("off", {}), ("on", dict(cache_refresh=True)),
+                     ("async", dict(cache_refresh=True,
+                                    async_refresh=True))):
+        t = HybridGNNTrainer(ds, sage, dataclasses.replace(cfg_b, **kw))
+        if weights is None:
+            weights = {k: v.cpu().numpy() for k, v in t.params.items()}
+        t.set_params(weights)
+        inputs = []
+        orig = t._grad
+
+        def spy(params, batch, x0, orig=orig, inputs=inputs):
+            inputs.append(x0.clone())
+            return orig(params, batch, x0)
+        t._grad = spy
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        h = t.train(4 if name != "async" else 6)
+        wall = time.perf_counter() - t0
+        t.close()
+        runs[name] = dict(losses=[m.loss for m in h], inputs=inputs,
+                          versions=[m.cache_version for m in h],
+                          launches=ops.kernel_launches(), wall_s=wall)
+    off, on, asy = runs["off"], runs["on"], runs["async"]
+    check(len(on["inputs"]) == len(off["inputs"]) == 4,
+          "refresh on/off: one accel input per iteration expected")
+    check(all(torch.equal(x, y) for x, y in zip(on["inputs"], off["inputs"])),
+          "refresh on/off: layer-0 inputs differ")
+    check(on["losses"] == off["losses"], "refresh on/off: losses differ")
+    check(on["versions"][-1] > 0 and off["versions"][-1] == 0,
+          f"refresh on/off versions {on['versions']} {off['versions']}")
+    check(asy["versions"][-1] > 0, f"async refresh never committed "
+          f"{asy['versions']}")
+    check(asy["losses"][:4] == off["losses"], "async refresh: losses differ")
+    res["b"] = {k: dict(losses=v["losses"], versions=v["versions"],
+                        launches=v["launches"], wall_s=v["wall_s"])
+                for k, v in runs.items()}
+    del runs
+
+    # (d) FeatureCache commits at kernel_pipeline_depth 1, 2 and 4 on the
+    # card: K6 at 2 and 4, each device block bit-equal to depth 1's
+    caches = {}
+    for depth in (1, *K6_DEPTHS):
+        c = build_cache(ds, slice_cfg.cache_fraction)
+        c.track_hotness = True
+        c.kernel_pipeline_depth = depth
+        rng = np.random.default_rng(5)
+        for _ in range(3):
+            c.lookup(rng.integers(0, ds.num_nodes, 200_000))
+        c.data_on(dev)
+        caches[depth] = c
+    ops.reset_kernel_launches()
+    moved = {d: c.refresh() for d, c in caches.items()}
+    torch.cuda.synchronize()
+    launches_d = ops.kernel_launches()
+    check(len(set(moved.values())) == 1 and moved[1] > 0,
+          f"depth commits moved {moved}")
+    check(launches_d["cache_update_pipelined"] == len(K6_DEPTHS)
+          and launches_d["cache_update"] == 1, f"K5/K6 launches {launches_d}")
+    block1 = caches[1].data_on(dev)
+    check(torch.equal(block1, caches[1].host_rows.to(dev)),
+          "depth-1 device block differs from the host block")
+    for d in K6_DEPTHS:
+        check(torch.equal(caches[d].data_on(dev), block1),
+              f"depth-{d} device block differs from depth 1")
+    res["d"] = dict(moved=moved, launches=launches_d)
+    emit("refresh", **res)
+    return dict(cache_update=launches_a["cache_update"],
+                cache_update_pipelined=launches_d["cache_update_pipelined"])
 
 
 def main() -> int:
@@ -438,9 +656,12 @@ def main() -> int:
         f"K3 launches {seg_launches}")
     emit("segsum", launches=seg_launches, losses=[m.loss for m in hist],
          shares=[m.shares for m in hist])
+    refresh_launches = phase_refresh(ds, sage, slice_cfg,
+                                     torch.device("cuda", 0))
 
     launches = dict(train["launches"])
     launches["segment_sum"] = seg_launches["segment_sum"]
+    launches.update(refresh_launches)
     kernels = []
     for name in ops.KERNELS:
         k = kern[name]

@@ -26,6 +26,22 @@ waits for its device's current stream.  ``t_tran`` and ``t_train`` (the
 DRM's inputs) therefore measure finished work, as the reference times
 after ``block_until_ready``.
 
+The hot-feature cache is dynamic under ``cache_refresh``: at an iteration
+boundary whose measured window hit rate drifted past
+``cache_drift_threshold``, the cache swaps its coldest slots for hotter
+observed rows (``FeatureCache.refresh``; with ``async_refresh`` the row
+gather is staged in a background thread and committed at a later
+boundary), re-prices the mapping and resets the measurement window.  Every
+batch in flight combines against the cache version its lookup was
+classified at, so losses are bit-identical with refresh on or off.  The
+commit writes the new version block on the training thread's stream and
+the combine reads it on the transfer stream: the block's event orders the
+two, and the combine marks the block as used by the transfer stream so
+its memory is not reused while the combine reads it.  With
+``recent_rows_batches`` > 0 rows still resident from an accelerator's last
+batches are re-read on the device instead of shipped again (invalidated by
+any refresh).
+
 Knobs of the reference that this slice does not port raise
 ``NotImplementedError`` naming the ROADMAP item that will port them; none
 is silently ignored.
@@ -40,6 +56,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..annotations import guarded_by
 from ..device import accel_devices, resolve_device, synchronize, to_device
 from ..graph.featcache import build_cache, compact_lookup
 from ..graph.featload import FeatureLoader, MissBlock
@@ -116,12 +133,6 @@ class HybridConfig:
                 (self.cache_sharding != "replicated",
                  f"cache_sharding={self.cache_sharding!r}",
                  "sharded plane with K4"),
-                (self.cache_refresh, "cache_refresh=True",
-                 "dynamic cache refresh with K5/K6"),
-                (self.async_refresh, "async_refresh=True",
-                 "dynamic cache refresh with K5/K6"),
-                (self.recent_rows_batches > 0, "recent_rows_batches>0",
-                 "recent-rows LRU"),
                 (self.prefetch_windows > 0, "prefetch_windows>0",
                  "out-of-core storage tier"),
                 (self.mmap_lru_windows > 0, "mmap_lru_windows>0",
@@ -131,7 +142,8 @@ class HybridConfig:
                  f"compression={self.compression!r}",
                  "gradient compression"),
                 (self.kernel_pipeline_depth != 1,
-                 f"kernel_pipeline_depth={self.kernel_pipeline_depth}",
+                 f"kernel_pipeline_depth={self.kernel_pipeline_depth} (the "
+                 f"combine at depth > 1 is K4)",
                  "sharded plane with K4"),
                 (self.ckpt_every > 0, "ckpt_every>0", "checkpointing"),
                 (self.pipeline_watchdog_seconds > 0,
@@ -158,6 +170,9 @@ class IterationMetrics:
     shares: Dict[str, int] = dataclasses.field(default_factory=dict)
                                       # rows each trainer trained this time
     cache_hit_rate: float = 0.0       # measured cache hit rate (window)
+    cache_version: int = 0            # hot-cache version after this
+                                      #   iteration's boundary (> 0 once a
+                                      #   refresh moved rows)
 
     @property
     def iter_time(self) -> float:
@@ -169,6 +184,12 @@ class IterationMetrics:
         return self.edges / t / 1e6 if t > 0 else 0.0
 
 
+# Deliberately unguarded: _refresh_failures / _refresh_disabled /
+# _staged_feedback / _refresh_thread and the refresh bookkeeping (touched
+# only at iteration boundaries on the training thread; the refresh worker
+# writes nothing but _refresh_error, which is declared), and everything the
+# pipeline hands through PipelineItem payloads (queue happens-before).
+@guarded_by("_state_lock", "_degraded", "_refresh_error")
 class HybridGNNTrainer:
     """Hybrid CPU + accelerator trainer.  ``device=None`` runs the
     accelerator trainers on ``cuda:0`` (raising without CUDA); pass
@@ -190,6 +211,12 @@ class HybridGNNTrainer:
         self._epoch_perm = self._rng.permutation(dataset.num_nodes)
         self._cursor = 0
         self._transfer_streams: Dict[torch.device, Any] = {}
+        # degraded-mode record (component -> event) and the async refresh
+        # worker's latched error, shared with health() and that worker
+        self._state_lock = threading.Lock()
+        self._degraded: Dict[str, Dict[str, Any]] = {}
+        self._refresh_failures = 0        # consecutive stage() failures
+        self._refresh_disabled = False    # budget spent: refresh is off
 
         # --- parameters / optimizer (one authoritative copy, on the card) ---
         gen = torch.Generator().manual_seed(cfg.seed)
@@ -200,9 +227,27 @@ class HybridGNNTrainer:
         self.cpu_sampler = NumpySampler(dataset.graph, gnn_cfg.fanouts,
                                         seed=cfg.seed + 1)
         self.cache = build_cache(dataset, cfg.cache_fraction,
-                                 transfer_dtype=cfg.feature_dtype)
+                                 transfer_dtype=cfg.feature_dtype,
+                                 refresh_decay=cfg.cache_refresh_decay,
+                                 max_refresh_frac=cfg.cache_refresh_frac,
+                                 refresh_hysteresis=cfg
+                                 .cache_refresh_hysteresis)
         self.loader = FeatureLoader(dataset, transfer_dtype=cfg.feature_dtype,
-                                    cache=self.cache, dedup=cfg.dedup)
+                                    cache=self.cache, dedup=cfg.dedup,
+                                    recent_batches=cfg.recent_rows_batches)
+        # async staged refresh: one stage() gather in flight at most
+        self._refresh_thread: Optional[threading.Thread] = None
+        self._refresh_error: Optional[BaseException] = None
+        self._staged_feedback: Optional[Tuple[float, float]] = None
+        if self.cache is not None:
+            self.cache.kernel_pipeline_depth = cfg.kernel_pipeline_depth
+            # the hotness counters cost two scattered adds per lookup and a
+            # 4 B/node estimate: only when the refresh policy reads them
+            self.cache.track_hotness = cfg.cache_refresh
+            # with TFP depth d at most d batches sit between load
+            # (classification) and transfer (combine), and at most one
+            # refresh fires per consumed iteration: d+2 versions cover them
+            self.cache.keep_versions = max(2, cfg.tfp_depth + 2)
         # measured duplication factor alpha from one probe mini-batch (its
         # own sampler and rng: the training streams stay untouched)
         self.measured_dedup_alpha = (
@@ -232,6 +277,14 @@ class HybridGNNTrainer:
         self.runtime = Runtime(assignment, use_drm=cfg.use_drm,
                                damping=cfg.drm_damping,
                                share_quantum=cfg.share_quantum)
+        # refresh cadence and the measured admission traffic the Eq. 7/8
+        # re-price reads; the staleness rate is the knob autotuner's input
+        # (ROADMAP, port queue: knob autotuner)
+        self._refresh_period = max(1, int(cfg.cache_refresh_period))
+        self._iters_done = 0
+        self._iters_since_refresh = 0
+        self._refresh_bytes_per_iter = 0.0
+        self._hit_decay_per_iter = 0.0
         self.history: List[IterationMetrics] = []
 
     # ------------------------------------------------------------ utilities
@@ -316,7 +369,9 @@ class HybridGNNTrainer:
             # memory, so it reads its full positional frontier in place
             if name != "cpu" and (self.cache is not None or self.cfg.dedup):
                 p["features"][name] = self.loader.load_compact(
-                    mb, pin=self.cache is not None)
+                    mb, pin=self.cache is not None,
+                    recent_key=(name if self.cfg.recent_rows_batches > 0
+                                else None))
             else:
                 p["features"][name] = self.loader.load(
                     mb, to_device=(name != "cpu"))
@@ -341,11 +396,28 @@ class HybridGNNTrainer:
             self.loader.note_transfer_padding(
                 pad, pad * rows.shape[1] * rows.element_size())
         miss = to_device(rows, dev)
+        if block.shipped is not None:
+            # publish the device rows for the recent-rows LRU; only later
+            # batches' transfer stages (in batch order) read them, and the
+            # padding rows sit past every index they use
+            block.shipped.array = miss
+        if block.recent:
+            # rows still resident from recent batches, re-read on the
+            # device ahead of the fresh block: [recent segments | fresh]
+            segs = [torch.index_select(e.array, 0, to_device(idx, dev))
+                    for e, idx in block.recent]
+            miss = torch.cat(segs + [miss])
         slots = to_device(look.slots, dev)
         miss_index = to_device(look.miss_index, dev)
-        cache_data = (self.cache.data_on(dev, version=look.version)
-                      if self.cache is not None else None)
+        cache_data = None
         if self.cache is not None:
+            # the block of the version the lookup was classified at: a
+            # refresh since the load stage must not rebind its slots
+            cache_data = self.cache.data_on(dev, version=look.version)
+            if dev.type == "cuda":
+                # this stream reads the block: its memory must not be
+                # reused before the combine ran, even once it retires
+                cache_data.record_stream(torch.cuda.current_stream(dev))
             self.cache.release_lookup(look)
         return assemble_features(cache_data, miss, slots, miss_index)
 
@@ -460,13 +532,148 @@ class HybridGNNTrainer:
             self.cfg.n_accel, self.cfg.total_batch,
             self.gnn_cfg.fanouts, self.gnn_cfg.layer_dims,
             model=self.gnn_cfg.model, cache_hit_rate=measured,
-            dedup_factor=alpha)
+            dedup_factor=alpha,
+            refresh_bytes_per_iter=self._refresh_bytes_per_iter)
         a = self.runtime.assignment
         n = max(self.cfg.n_accel, 1)
         a.accel_batch = mapping["accel_each"]
         a.cpu_batch = self.cfg.total_batch - a.accel_batch * n
         self._model_hit_rate = measured
         self.measured_dedup_alpha = alpha
+
+    def _maybe_refresh_cache(self) -> bool:
+        """Dynamic cache refresh on the drift signal: when the measured
+        window hit rate drifts past ``cache_drift_threshold`` from the rate
+        the mapping was priced with, swap the coldest slots for the hottest
+        observed uncached rows.  When rows move the mapping is re-priced at
+        once on the drifted measurement and the window resets.  Returns
+        True when the refresh moved rows."""
+        if self.cache is None or not self.cfg.cache_refresh \
+                or self._refresh_disabled:
+            return False
+        if self.cfg.async_refresh:
+            return self._async_refresh_step()
+        win = self.loader.snapshot("window")
+        if win.total_rows == 0:
+            return False
+        measured = win.hit_rate
+        if abs(measured - self._model_hit_rate) <= \
+                self.cfg.cache_drift_threshold:
+            return False
+        try:
+            swapped = self.cache.refresh()
+        except Exception as e:
+            # degraded mode: the current version keeps serving; retry at
+            # the next drift boundary (bounded by the budget)
+            self._handle_refresh_failure(e)
+            return False
+        self._refresh_failures = 0
+        self._finish_refresh(swapped, measured, self._window_alpha(win))
+        return swapped > 0
+
+    def _handle_refresh_failure(self, err: BaseException,
+                                context: Optional[str] = None) -> None:
+        """Shared refresh-failure protocol (sync and async): discard any
+        staged plan, count the consecutive failure, then re-raise
+        (``degrade_on_failure=False``) or degrade: retry at the next drift
+        boundary until ``refresh_failure_budget`` consecutive failures
+        disable refresh for the rest of the run."""
+        self._refresh_failures += 1
+        if self.cache is not None:
+            self.cache.discard_staged()
+        if not self.cfg.degrade_on_failure:
+            if context is not None:
+                raise RuntimeError(context) from err
+            raise err
+        if self._refresh_failures >= self.cfg.refresh_failure_budget \
+                and not self._refresh_disabled:
+            self._refresh_disabled = True
+            self._note_degraded(
+                "refresh", err,
+                action=f"dynamic cache refresh disabled after "
+                       f"{self._refresh_failures} consecutive stage "
+                       f"failures; serving cache version "
+                       f"{self.cache.version if self.cache else 0}")
+
+    def _finish_refresh(self, swapped: int, measured: float,
+                        alpha: float) -> None:
+        """Post-refresh bookkeeping of the sync and async paths: when rows
+        moved, the measured admission traffic (swapped rows over the
+        iterations since the last refresh) and staleness rate, then the
+        re-price (or, without a mapping, the drift anchor) and a fresh
+        measurement window."""
+        reprice = self.cfg.hybrid and self.cfg.n_accel > 0
+        if swapped:
+            iters = max(self._iters_since_refresh, 1)
+            self._refresh_bytes_per_iter = (
+                swapped * self.cache.row_bytes / iters)
+            self._hit_decay_per_iter = (
+                max(self._model_hit_rate - measured, 0.0) / iters)
+            self._iters_since_refresh = 0
+            if reprice:
+                self._reprice_mapping(measured, alpha)
+            else:
+                # no mapping to re-price: anchor the drift signal on the
+                # measured rate so a converged cache stops re-triggering
+                self._model_hit_rate = measured
+            self.loader.reset_window()
+        elif not reprice:
+            # nothing hotter was uncached: anchor here too, or the armed
+            # signal re-runs the O(num_nodes) candidate scan every
+            # iteration (hybrid runs leave it to the mapping feedback)
+            self._model_hit_rate = measured
+
+    def _async_refresh_step(self) -> bool:
+        """One boundary step of the staged refresh:
+
+          idle + drift     -> snapshot the drifted measurement and start
+                              ``stage()`` (the row gather) in a background
+                              thread;
+          stage running    -> nothing;
+          stage finished   -> ``commit()`` and the usual bookkeeping on the
+                              measurement snapshotted at stage time.
+
+        Losses stay bit-identical to the sync path and to refresh off:
+        whatever boundary the commit lands on, batches in flight combine
+        against the version their lookup was classified at."""
+        t = self._refresh_thread
+        if t is not None:
+            if t.is_alive():
+                return False
+            self._refresh_thread = None
+            with self._state_lock:
+                err, self._refresh_error = self._refresh_error, None
+            if err is not None:
+                self._staged_feedback = None
+                self._handle_refresh_failure(
+                    err, context="async cache-refresh stage() failed")
+                return False
+            measured, alpha = self._staged_feedback
+            self._staged_feedback = None
+            swapped = self.cache.commit()
+            self._refresh_failures = 0
+            self._finish_refresh(swapped, measured, alpha)
+            return swapped > 0
+        win = self.loader.snapshot("window")
+        if win.total_rows == 0:
+            return False
+        measured = win.hit_rate
+        if abs(measured - self._model_hit_rate) <= \
+                self.cfg.cache_drift_threshold:
+            return False
+        self._staged_feedback = (measured, self._window_alpha(win))
+
+        def run_stage():
+            try:
+                self.cache.stage()
+            except BaseException as e:  # surfaced at the next boundary
+                with self._state_lock:
+                    self._refresh_error = e
+
+        self._refresh_thread = threading.Thread(
+            target=run_stage, daemon=True, name="cache-refresh-stage")
+        self._refresh_thread.start()
+        return False
 
     def _maybe_refresh_mapping(self) -> bool:
         """When the loader's measured transfer-path hit rate drifts more
@@ -503,6 +710,13 @@ class HybridGNNTrainer:
                 t_tran=p["t"].get("t_tran", 0.0),
                 t_tc=ttimes["t_tc"], t_ta=ttimes["t_ta"])
             self.runtime.end_iteration(times)
+            self._iters_done += 1
+            self._iters_since_refresh += 1
+            # refresh first: when it moves rows it resets the window, so
+            # the mapping feedback then sees the post-refresh rate; the
+            # cadence knob gates how often the drift check runs at all
+            if self._iters_done % self._refresh_period == 0:
+                self._maybe_refresh_cache()
             self._maybe_refresh_mapping()
             edges = sum(mb.edges_traversed()
                         for mb in p["minibatch"].values())
@@ -512,12 +726,70 @@ class HybridGNNTrainer:
                 assignment=self.runtime.quantized_shares(),
                 shares=dict(p["shares"]),
                 cache_hit_rate=(self.cache.measured_hit_rate()
-                                if self.cache else 0.0)))
+                                if self.cache else 0.0),
+                cache_version=self.cache.version if self.cache else 0))
+        # a stage that failed after the last boundary would otherwise vanish
+        self._raise_background_errors()
         return self.history
 
+    def _raise_background_errors(self) -> None:
+        """Surface a latched failure of a finished async ``stage()``
+        through the refresh-failure protocol: it raises in fail-fast mode
+        (``degrade_on_failure=False``) and is recorded for ``health()``
+        otherwise."""
+        if (self._refresh_thread is None
+                or not self._refresh_thread.is_alive()):
+            self._refresh_thread = None
+            with self._state_lock:
+                err, self._refresh_error = self._refresh_error, None
+            if err is not None:
+                self._handle_refresh_failure(
+                    err, context="async cache-refresh stage() failed")
+
     def close(self) -> None:
-        """Release the loader's gather pool."""
+        """Join an in-flight refresh stage, release the loader's gather
+        pool, then surface a failure the stage latched."""
+        t = self._refresh_thread
+        if t is not None:
+            t.join(timeout=30.0)
         self.loader.close()
+        self._raise_background_errors()
+
+    def _note_degraded(self, component: str,
+                       error: Optional[BaseException],
+                       action: str = "") -> None:
+        """Record one component's permanent degradation (the first failure
+        per component wins) for ``health()``."""
+        with self._state_lock:
+            if component in self._degraded:
+                return
+            self._degraded[component] = {
+                "component": component,
+                "error": repr(error) if error is not None else "",
+                "action": action,
+                "iteration": len(self.history),
+            }
+
+    def health(self) -> Dict[str, Any]:
+        """Degraded-mode report: ``status`` ("ok" until a component
+        degraded for good), one event per degraded component, and the
+        dynamic refresh's failure counters."""
+        comp: Dict[str, Any] = {}
+        if self.cache is not None and self.cfg.cache_refresh:
+            comp["refresh"] = {
+                "enabled": not self._refresh_disabled,
+                "stage_failures": int(self.cache.stage_failures),
+                "consecutive_failures": int(self._refresh_failures),
+            }
+        with self._state_lock:
+            degraded = sorted(self._degraded)
+            events = [dict(e) for e in self._degraded.values()]
+        return {
+            "status": "degraded" if degraded else "ok",
+            "degraded": degraded,
+            "events": events,
+            "components": comp,
+        }
 
     # ------------------------------------------------------------- reporting
 
@@ -534,18 +806,21 @@ class HybridGNNTrainer:
         reference's keys that this slice can produce): ``shipped_bytes``
         crossed host->device (unique misses plus bucket padding),
         ``saved_bytes`` the cache absorbed, ``dedup_saved_bytes`` frontier
-        dedup absorbed, ``host_read_bytes`` the CPU trainer read in place.
-        Shipped (minus padding) + saved + dedup-saved rebuild the
+        dedup absorbed, ``recent_saved_bytes`` the recent-rows LRU absorbed
+        (``recent_rows`` rows), ``host_read_bytes`` the CPU trainer read in
+        place.  Shipped (minus padding) + the saved terms rebuild the
         one-row-per-position baseline."""
         s = self.loader.snapshot()
         host = self.loader.snapshot("host_stats")
         baseline = (s.bytes - s.padding_bytes) + s.saved_bytes \
-            + s.dedup_saved_bytes
+            + s.dedup_saved_bytes + s.recent_saved_bytes
         return {
             "shipped_rows": float(s.rows),
             "shipped_bytes": float(s.bytes),
             "saved_bytes": float(s.saved_bytes),
             "dedup_saved_bytes": float(s.dedup_saved_bytes),
+            "recent_rows": float(s.recent_rows),
+            "recent_saved_bytes": float(s.recent_saved_bytes),
             "padding_bytes": float(s.padding_bytes),
             "host_read_bytes": float(host.bytes),
             "hit_rate": s.hit_rate,

@@ -1,8 +1,8 @@
-"""Device-resident hot-feature cache (static, degree-ordered) + frontier
-deduplication.
+"""Device-resident hot-feature cache (degree-ordered at boot, refreshed
+from observed traffic) + frontier deduplication.
 
-Port of the static half of ``repro/graph/featcache.py``.  Two levers keep
-rows off the host->device link:
+Port of ``repro/graph/featcache.py`` (the replicated ``FeatureCache``).  Two
+levers keep rows off the host->device link:
 
   * power-law frontiers are dominated by hub nodes, so the top-K hottest
     node features (``GraphDataset.feature_hotness``) are pinned in device
@@ -17,20 +17,37 @@ the cache; the on-device combine (``kernels.ops.assemble_features``) expands
 the shipped unique-miss rows back into the positional layer-0 input.
 
 The host hot block is a torch tensor in the transfer dtype (``float32`` or
-``bfloat16``); ``data_on(device)`` places it once per device.  The dynamic
-refresh (``cache_refresh``), the sharded plane and hotness tracking are not
-ported yet (ROADMAP, next slice): the cache version stays 0.
+``bfloat16``); ``data_on(device)`` places it once per (device, version).
+
+The cache boots static and adapts: with ``track_hotness`` on, every lookup
+feeds decayed per-slot / per-uncached-node counters (float32 numpy, the
+same ``np.add.at`` calls as the reference, so the counters are bit-equal),
+and ``stage()`` / ``commit()`` swap the coldest slots for strictly hotter
+observed rows.  ``commit`` scatters the admitted rows into every placed
+device block with ``kernels.ops.update_cache_rows`` (K5, or K6 at
+``kernel_pipeline_depth`` 2..4 on a card) and bumps ``version``.  Every
+``CacheLookup`` records the version it was classified at, and
+``data_on(device, version=v)`` serves that version's block: old versions
+are rebuilt from an O(swapped rows) undo log, retired once no pinned
+lookup can reference them (or past ``keep_versions``).
+
+On a card a new version block is written on the committing thread's
+stream; its CUDA event travels with the block and ``data_on`` makes the
+caller's current stream wait on it.  Blocks are never written in place:
+a commit clones the block first, so a combine still reading an old version
+reads the old rows.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..annotations import guarded_by, requires_lock
+from ..kernels.ops import update_cache_rows
 from .storage import FeatureSource, as_feature_source
 
 __all__ = ["CacheLookup", "CacheStats", "FeatureCache", "build_cache",
@@ -175,19 +192,44 @@ def positional_lookup(ids: np.ndarray, slot_of: np.ndarray) -> CacheLookup:
                        inverse=np.arange(ids.shape[0], dtype=np.int32))
 
 
-# one lock covers the stats windows, the memoized device blocks and the
-# in-flight pin counts.  Deliberately undeclared: slot_of, cached_ids,
-# version and the host block (written once in __init__, read-only after:
-# the static cache never refreshes), capacity/feat_dim/row_bytes.
-@guarded_by("_lock", "stats", "epoch_stats", "_device_data", "_inflight")
+@dataclasses.dataclass
+class _StagedRefresh:
+    """A planned-and-gathered refresh awaiting its cheap ``commit()``.
+
+    ``base_version`` pins the slot table the plan was computed against: a
+    commit (from any path) bumps the version, so a plan staged against an
+    older table is stale and discarded instead of applied."""
+    base_version: int
+    top: np.ndarray       # admitted candidate ids (may be empty)
+    cold: np.ndarray      # victim slot indices, int64, same length
+    rows: torch.Tensor    # gathered admitted rows in transfer dtype
+
+
+# one lock covers the (slot_of, version) pair, the hotness counters, the
+# stats windows, the staged plan and the version-retention state (undo log,
+# floor, placed device blocks and their ready events, pins).
+# Deliberately undeclared: source/capacity/num_nodes/feat_dim/row_bytes/
+# transfer_dtype (immutable), track_hotness/keep_versions/
+# kernel_pipeline_depth/refresh_* (config knobs, set before any worker
+# thread starts).
+@guarded_by("_lock", "slot_of", "version", "cached_ids", "stats",
+            "epoch_stats", "stage_failures", "refreshes",
+            "refresh_swapped_rows", "_staged", "_slot_hot", "_node_hot",
+            "_host_rows", "_undo", "_floor", "_device_data", "_devices",
+            "_inflight", "_pin_used")
 class FeatureCache:
     """Top-K hot-row cache over any ``FeatureSource``: ``capacity`` rows
-    chosen by descending ``hotness``, materialized once on the host in
-    ``transfer_dtype`` and placed per device on first use."""
+    chosen by descending ``hotness`` at boot, materialized on the host in
+    ``transfer_dtype`` and placed per device on first use; ``refresh()``
+    then adapts the resident set to the observed access distribution, with
+    versioned device blocks for in-flight consistency."""
 
     def __init__(self, source: "FeatureSource | np.ndarray",
                  hotness: np.ndarray, capacity: int,
-                 transfer_dtype: str = "float32"):
+                 transfer_dtype: str = "float32",
+                 refresh_decay: float = 0.5,
+                 max_refresh_frac: float = 0.25,
+                 refresh_hysteresis: float = 1.25):
         source = as_feature_source(source)
         num_nodes, feat_dim = source.shape
         capacity = int(max(0, min(capacity, num_nodes)))
@@ -205,22 +247,61 @@ class FeatureCache:
         self.row_bytes = wire_row_bytes(feat_dim, transfer_dtype)
         self.slot_of = np.full(num_nodes, -1, dtype=np.int32)
         self.slot_of[self.cached_ids] = np.arange(capacity, dtype=np.int32)
-        self.host_rows = to_transfer_dtype(source.take(self.cached_ids),
-                                           transfer_dtype)
+        self._host_rows = to_transfer_dtype(source.take(self.cached_ids),
+                                            transfer_dtype)
         self._expected_hit_rate = (float(hotness[self.cached_ids].sum())
                                    / max(float(hotness.sum()), 1e-12))
-        self.version = 0
         self.stats = CacheStats()        # lifetime totals
-        self.epoch_stats = CacheStats()  # the measurement window
+        self.epoch_stats = CacheStats()  # since the last refresh (feedback)
         self._lock = threading.Lock()
-        self._device_data: Dict[Tuple[str, int], torch.Tensor] = {}
-        # in-flight lookup pins: version -> count not yet released
+        self.version = 0
+        self.keep_versions = 2           # the trainer sizes it to tfp_depth+2
+        self.kernel_pipeline_depth = 1   # 2..4: K6, the multi-buffered scatter
+        self.refresh_decay = float(refresh_decay)
+        self.max_refresh_frac = float(max_refresh_frac)
+        # admission hysteresis: a candidate must be hotter than its victim
+        # by this factor to swap, so a hub set oscillating at the boundary
+        # does not thrash; 1.0 is the plain strictly-hotter policy
+        self.refresh_hysteresis = float(refresh_hysteresis)
+        self.refreshes = 0               # commits that moved rows
+        self.refresh_swapped_rows = 0
+        self.stage_failures = 0          # stage() attempts that raised
+        self._staged: Optional[_StagedRefresh] = None
+        # decayed hotness estimates: frontier positions observed per cached
+        # slot / per uncached node.  Opt-in (the trainer turns it on with
+        # cache_refresh); the full-length estimate allocates lazily
+        self.track_hotness = False
+        self._slot_hot = np.zeros(capacity, dtype=np.float32)
+        self._node_hot: Optional[np.ndarray] = None
+        # version retention: ``_undo[v]`` holds (victim slots, their
+        # version-v rows), the delta that rebuilds the version-v host block
+        # from version v+1; ``_floor`` is the lowest rebuildable version
+        self._undo: Dict[int, Tuple[np.ndarray, torch.Tensor]] = {}
+        self._floor = 0
+        # (device, version) -> (block, CUDA event its writer recorded or
+        # None when it was complete on return)
+        self._device_data: Dict[Tuple[str, int],
+                                Tuple[torch.Tensor, Optional[Any]]] = {}
+        self._devices: Dict[str, torch.device] = {}
+        # in-flight lookup pins: version -> count not yet released.  Once
+        # any caller pins, drained versions retire eagerly on release;
+        # keep_versions stays the hard bound either way
         self._inflight: Dict[int, int] = {}
+        self._pin_used = False
+
+    # ------------------------------------------------------------- plumbing
 
     @property
     def nbytes(self) -> int:
         """Device bytes pinned by the hot block (per trainer device)."""
-        return self.host_rows.numel() * self.host_rows.element_size()
+        with self._lock:
+            return self._host_rows.numel() * self._host_rows.element_size()
+
+    @property
+    def host_rows(self) -> torch.Tensor:
+        """The current version's host block (never written in place)."""
+        with self._lock:
+            return self._host_rows
 
     @property
     def expected_hit_rate(self) -> float:
@@ -229,31 +310,63 @@ class FeatureCache:
         return self._expected_hit_rate
 
     def measured_hit_rate(self) -> float:
-        """Measured positional hit rate over the current window (the
-        lifetime rate before any lookup landed in it)."""
+        """Measured positional hit rate over the current epoch window
+        (reset by a commit that moved rows; the lifetime rate before any
+        lookup landed in it)."""
         with self._lock:
             if self.epoch_stats.total_rows:
                 return self.epoch_stats.hit_rate
             return self.stats.hit_rate
 
-    def data_on(self, device: torch.device,
-                version: Optional[int] = None) -> torch.Tensor:
-        """The [K, F] hot block resident on ``device``, placed once per
-        (device, version) and memoized.  The static cache has one version;
-        asking for another is a consistency bug and raises."""
-        ver = self.version if version is None else int(version)
-        if ver != self.version:
-            raise RuntimeError(f"cache version {ver} does not exist (static "
-                               f"cache, version {self.version})")
-        key = (str(device), ver)
+    def slot_hotness(self) -> np.ndarray:
+        """Decayed per-slot hotness estimate (copy)."""
         with self._lock:
-            arr = self._device_data.get(key)
-            if arr is None:
+            return self._slot_hot.copy()
+
+    def uncached_hotness(self, ids: np.ndarray) -> np.ndarray:
+        """Decayed hotness estimate of (uncached) node ids (copy)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        with self._lock:
+            if self._node_hot is None:
+                return np.zeros(ids.shape[0], dtype=np.float32)
+            return self._node_hot[ids].copy()
+
+    def data_on(self, device, version: Optional[int] = None) -> torch.Tensor:
+        """The [K, F] hot block on ``device`` at ``version`` (default:
+        current), placed once per (device, version).  An old version's
+        host block is rebuilt by applying the undo log backwards from the
+        current one; a version below the retention floor raises.  On a
+        card the caller's current stream waits for the commit that wrote
+        the block."""
+        device = torch.device(device)
+        with self._lock:
+            ver = self.version if version is None else int(version)
+            key = (str(device), ver)
+            entry = self._device_data.get(key)
+            if entry is None:
+                if ver < self._floor or ver > self.version:
+                    raise RuntimeError(
+                        f"cache version {ver} retired (current "
+                        f"{self.version}, keep_versions="
+                        f"{self.keep_versions}): a lookup outlived the "
+                        f"refresh retention window — raise keep_versions")
+                host = self._host_rows
+                if ver < self.version:
+                    # each undo entry restores the rows its bump evicted
+                    host = host.clone()
+                    for v in range(self.version - 1, ver - 1, -1):
+                        slots, old_rows = self._undo[v]
+                        host[torch.from_numpy(slots).long()] = old_rows
                 # placed under the lock so two trainer threads never ship
-                # the same [K, F] block twice; runs once per device
-                arr = self.host_rows.to(device)
-                self._device_data[key] = arr
-        return arr
+                # the same [K, F] block twice; once per (device, version).
+                # A pageable host->device copy is complete on return
+                entry = (host.to(device), None)
+                self._device_data[key] = entry
+                self._devices[str(device)] = device
+        block, ready = entry
+        if ready is not None:
+            torch.cuda.current_stream(device).wait_event(ready)
+        return block
 
     # --------------------------------------------------------------- lookup
 
@@ -264,58 +377,319 @@ class FeatureCache:
         ``dedup=True`` classifies only the frontier's unique ids and
         compacts the miss block to one row per unique miss; ``dedup=False``
         keeps one miss row per frontier position.  Stats count positions.
-        ``record=False`` defers accounting to ``record_lookup`` (the loader
-        records only once its gather succeeded).  ``pin=True`` registers
-        the lookup as in flight until ``release_lookup``.
+        The (slot table, version) pair is snapshotted atomically, and the
+        lookup records the version it was classified at.  ``record=False``
+        defers accounting to ``record_lookup`` (the loader records only
+        once its gather succeeded).  ``pin=True`` registers the version as
+        in flight, atomically with the snapshot, until ``release_lookup``.
         """
-        if pin:
-            with self._lock:
-                self._inflight[self.version] = \
-                    self._inflight.get(self.version, 0) + 1
+        slot_of, ver = self.snapshot(pin=1 if pin else 0)
         if dedup:
-            look = compact_lookup(ids, self.slot_of)
+            look = compact_lookup(ids, slot_of)
         else:
-            look = positional_lookup(ids, self.slot_of)
-        look.version = self.version
+            look = positional_lookup(ids, slot_of)
+        look.version = ver
         if record:
             self.record_lookup(look)
         return look
 
+    def snapshot(self, pin: int = 0) -> Tuple[np.ndarray, int]:
+        """Atomically snapshot the (slot table, version) pair; ``pin``
+        registers that many in-flight references at that version (each
+        owing one ``release_version``).  A commit swaps the table
+        reference and never writes the array, so the table is immutable."""
+        with self._lock:
+            if pin:
+                self._pin_used = True
+                self._inflight[self.version] = \
+                    self._inflight.get(self.version, 0) + int(pin)
+            return self.slot_of, self.version
+
     def release_lookup(self, look: CacheLookup) -> None:
         """Release one ``lookup(pin=True)`` registration (a no-op for an
-        unpinned lookup)."""
+        unpinned lookup).  When the last pin at a version drops, every
+        retained block and undo entry below the oldest pinned version
+        retires at once."""
+        self.release_version(int(look.version))
+
+    def release_version(self, version: int) -> None:
+        """Release one pinned reference at ``version``."""
         with self._lock:
-            self._release_locked(int(look.version))
+            ver = int(version)
+            n = self._inflight.get(ver)
+            if n is None:
+                return
+            if n > 1:
+                self._inflight[ver] = n - 1
+            else:
+                del self._inflight[ver]
+            self._retire_below_floor()
 
     @requires_lock("_lock")
-    def _release_locked(self, version: int) -> None:
-        n = self._inflight.get(version)
-        if n is None:
+    def _retire_below_floor(self) -> None:
+        # without any pin the keep_versions window in commit() is the only
+        # retirement
+        if not self._pin_used:
             return
-        if n > 1:
-            self._inflight[version] = n - 1
-        else:
-            del self._inflight[version]
+        floor = min(self._inflight) if self._inflight else self.version
+        floor = min(floor, self.version)   # never retire the current block
+        if floor > self._floor:
+            self._floor = floor
+        for key in [k for k in self._device_data if k[1] < self._floor]:
+            del self._device_data[key]
+        for v in [v for v in self._undo if v < self._floor]:
+            del self._undo[v]
 
     def inflight(self) -> int:
-        """Pinned lookups not yet released (observability for tests)."""
+        """Pinned lookups not yet released."""
         with self._lock:
             return sum(self._inflight.values())
 
+    def retained_versions(self) -> List[int]:
+        """Sorted cache versions still rebuildable (current included)."""
+        with self._lock:
+            return list(range(self._floor, self.version + 1))
+
+    def retained_bytes(self) -> int:
+        """Host bytes held by the undo log: O(swapped rows per retained
+        version); the live current block is excluded."""
+        with self._lock:
+            return sum(slots.nbytes + rows.numel() * rows.element_size()
+                       for slots, rows in self._undo.values())
+
     def record_lookup(self, look: CacheLookup) -> None:
-        """Account one classified lookup into both stats windows."""
+        """Account one classified lookup: both stats windows and, with
+        ``track_hotness``, the hotness counters (one count per frontier
+        position), atomically under the cache lock.  A lookup classified
+        at an older version lands its counts on the current tables, as in
+        the reference."""
         delta = CacheStats(
             lookups=1, hit_rows=look.num_hit,
             miss_rows=look.miss_positions, unique_rows=look.num_unique,
             saved_bytes=look.num_hit * self.row_bytes,
             dedup_saved_bytes=look.dup_miss_rows * self.row_bytes)
+        hit = look.slots >= 0
         with self._lock:
             self.stats.merge(delta)
             self.epoch_stats.merge(delta)
+            if self.track_hotness:
+                if self._node_hot is None:
+                    self._node_hot = np.zeros(self.num_nodes,
+                                              dtype=np.float32)
+                if self.capacity:
+                    np.add.at(self._slot_hot, look.slots[hit],
+                              np.float32(1.0))
+                np.add.at(self._node_hot, look.ids[~hit], np.float32(1.0))
+
+    def stats_snapshot(self) -> Tuple[CacheStats, CacheStats]:
+        """(lifetime, epoch-window) stats copies, taken atomically."""
+        with self._lock:
+            return (dataclasses.replace(self.stats),
+                    dataclasses.replace(self.epoch_stats))
+
+    # -------------------------------------------------------------- refresh
+
+    @property
+    def staged_ready(self) -> bool:
+        """True when a staged refresh awaits its ``commit()``."""
+        with self._lock:
+            return self._staged is not None
+
+    @property
+    def staged_swaps(self) -> int:
+        """Swap count of the currently staged plan (0 when none)."""
+        with self._lock:
+            return 0 if self._staged is None else \
+                int(self._staged.top.shape[0])
+
+    def stage(self, max_swap: Optional[int] = None) -> int:
+        """Plan the next refresh and gather its admitted rows, the
+        expensive half.
+
+        Under the lock: the hottest observed uncached candidates pair
+        hottest-first against the coldest-first slots, and a pair swaps
+        only while the candidate is hotter than ``refresh_hysteresis`` x
+        its victim (a monotone predicate, so the swap set is a prefix); at
+        most ``max_swap`` rows (default ``max_refresh_frac`` of capacity).
+        The admitted-row gather then runs with the lock released, so it
+        can run in a background thread while lookups proceed.  The plan is
+        pinned to the version it was computed against and dropped if a
+        commit lands first.  A gather that raises counts in
+        ``stage_failures`` and leaves no plan.  Returns the planned swap
+        count."""
+        with self._lock:
+            if self.capacity == 0:
+                return 0
+            cap = self.capacity
+            k_max = max(1, int(round(cap * self.max_refresh_frac)))
+            if max_swap is not None:
+                k_max = int(max_swap)
+            k_max = max(0, min(k_max, cap))
+            # candidates: observed-miss ids that are (still) uncached
+            if self._node_hot is None:       # no tracked traffic yet
+                cand = np.zeros(0, dtype=np.int64)
+            else:
+                cand = np.flatnonzero(self._node_hot > 0.0).astype(np.int64)
+                cand = cand[self.slot_of[cand] < 0]
+            top = cold = np.zeros(0, dtype=np.int64)
+            n_swap = 0
+            if k_max and cand.shape[0]:
+                k = min(k_max, cand.shape[0])
+                top = cand[np.argpartition(-self._node_hot[cand], k - 1)[:k]]
+                # hottest first, ties broken by id for determinism
+                top = top[np.lexsort((top, -self._node_hot[top]))]
+                # coldest slots first, ties broken by cached id
+                cold = np.lexsort((self.cached_ids, self._slot_hot)
+                                  )[:k].astype(np.int64)
+                n_swap = int(np.count_nonzero(
+                    self._node_hot[top] > np.float32(self.refresh_hysteresis)
+                    * self._slot_hot[cold]))
+            top, cold = top[:n_swap], cold[:n_swap]
+            base = self.version
+            host_dtype = self._host_rows.dtype
+        if n_swap:
+            try:
+                rows = to_transfer_dtype(self.source.take(top),
+                                         self.transfer_dtype)
+            except Exception:
+                with self._lock:
+                    self.stage_failures += 1
+                raise
+        else:
+            rows = torch.zeros((0, self.feat_dim), dtype=host_dtype)
+        with self._lock:
+            if self.version != base:
+                # a commit landed while we gathered: the plan was computed
+                # against a retired table
+                self._staged = None
+                return 0
+            self._staged = _StagedRefresh(base, top, cold, rows)
+            return n_swap
+
+    def discard_staged(self) -> int:
+        """Drop a staged-but-uncommitted plan; the cache keeps serving the
+        current version.  Returns the swaps discarded."""
+        with self._lock:
+            plan, self._staged = self._staged, None
+            return 0 if plan is None else int(plan.top.shape[0])
+
+    def commit(self) -> int:
+        """Apply the staged refresh, the cheap half: table swaps and device
+        row scatters, no source access.
+
+        Each pair is re-validated against the commit-time counters (a
+        victim that heated up while the gather ran is spared).  When rows
+        move: a new host block is built copy-on-write (in-flight CPU
+        combines keep reading the old one), the evicted rows go to the
+        undo log, every placed current-version device block is cloned and
+        scatter-updated (``kernels.ops.update_cache_rows``) into the new
+        version's block, ``version`` is bumped, versions past
+        ``keep_versions`` or below the oldest pin retire, and the epoch
+        stats window resets.  Every commit of a live plan is a hotness
+        window boundary (the counters decay); a stale or absent plan
+        returns 0 and changes nothing.  Returns the rows swapped."""
+        with self._lock:
+            plan, self._staged = self._staged, None
+            if plan is None or plan.base_version != self.version:
+                return 0
+            top, cold, rows = plan.top, plan.cold, plan.rows
+            n_swap = int(top.shape[0])
+            if n_swap:
+                keep = (self._node_hot[top]
+                        > np.float32(self.refresh_hysteresis)
+                        * self._slot_hot[cold])
+                top, cold = top[keep], cold[keep]
+                rows = rows[torch.from_numpy(keep)]
+                n_swap = int(top.shape[0])
+            if n_swap:
+                evicted = self.cached_ids[cold].copy()
+                new_slot_of = self.slot_of.copy()
+                new_slot_of[evicted] = -1
+                new_slot_of[top] = cold.astype(np.int32)
+                new_cached = self.cached_ids.copy()
+                new_cached[cold] = top
+                cold_t = torch.from_numpy(cold)
+                new_host = self._host_rows.clone()
+                new_host[cold_t] = rows
+                slots32 = cold.astype(np.int32)
+                self._undo[self.version] = (slots32,
+                                            self._host_rows[cold_t])
+                # estimates travel with their nodes
+                admit_est = self._node_hot[top].copy()
+                self._node_hot[evicted] = self._slot_hot[cold]
+                self._slot_hot[cold] = admit_est
+                self._node_hot[top] = 0.0
+                new_ver = self.version + 1
+                # device scatters under the lock: they must be atomic with
+                # the table/version swap, or a lookup could pair the new
+                # table with an un-updated block
+                for dev_key, dev in self._devices.items():
+                    entry = self._device_data.get((dev_key, self.version))
+                    if entry is not None:
+                        self._device_data[(dev_key, new_ver)] = \
+                            self._scatter_block(entry, rows, slots32, dev)
+                self.slot_of = new_slot_of
+                self.cached_ids = new_cached
+                self._host_rows = new_host
+                self.version = new_ver
+                # retire versions no in-flight lookup can still reference
+                low = new_ver - max(int(self.keep_versions), 1) + 1
+                if low > self._floor:
+                    self._floor = low
+                for key in [key for key in self._device_data
+                            if key[1] < self._floor]:
+                    del self._device_data[key]
+                for v in [v for v in self._undo if v < self._floor]:
+                    del self._undo[v]
+                # pins leaked past the window (a batch that never reached
+                # its release) can no longer be served: age them out so
+                # one leak does not disable eager retirement for good
+                for v in [v for v in self._inflight if v < low]:
+                    del self._inflight[v]
+                self._retire_below_floor()
+                self.epoch_stats = CacheStats()
+                self.refreshes += 1
+                self.refresh_swapped_rows += n_swap
+            # window boundary: old hotness fades relative to the next epoch
+            self._slot_hot *= np.float32(self.refresh_decay)
+            if self._node_hot is not None:
+                self._node_hot *= np.float32(self.refresh_decay)
+            return n_swap
+
+    @requires_lock("_lock")
+    def _scatter_block(self, entry, rows: torch.Tensor, slots: np.ndarray,
+                       dev: torch.device):
+        """The next version of one placed block: a clone of ``entry``'s
+        block with ``rows`` scattered to ``slots``, on the calling thread's
+        current stream.  On a card the old block is marked as used by that
+        stream (the allocator must not hand its memory out while the clone
+        still reads it) and an event marks when the new one is written."""
+        cur, ready = entry
+        if dev.type != "cuda":
+            return (update_cache_rows(cur, rows, slots,
+                                      self.kernel_pipeline_depth), None)
+        stream = torch.cuda.current_stream(dev)
+        if ready is not None:
+            stream.wait_event(ready)
+        block = update_cache_rows(cur, rows.to(dev), slots,
+                                  self.kernel_pipeline_depth)
+        cur.record_stream(stream)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return block, done
+
+    def refresh(self, max_swap: Optional[int] = None) -> int:
+        """One-shot refresh: ``stage()`` + ``commit()`` back to back (one
+        counter decay per call).  Returns the rows swapped."""
+        self.stage(max_swap)
+        return self.commit()
 
 
 def build_cache(dataset, fraction: float,
-                transfer_dtype: str = "float32") -> Optional[FeatureCache]:
+                transfer_dtype: str = "float32",
+                refresh_decay: float = 0.5,
+                max_refresh_frac: float = 0.25,
+                refresh_hysteresis: float = 1.25) -> Optional[FeatureCache]:
     """Cache of ``fraction`` of the dataset's nodes (None when <= 0)."""
     if fraction <= 0.0:
         return None
@@ -323,4 +697,7 @@ def build_cache(dataset, fraction: float,
     if capacity == 0:
         return None
     return FeatureCache(dataset.feature_source, dataset.feature_hotness(),
-                        capacity, transfer_dtype=transfer_dtype)
+                        capacity, transfer_dtype=transfer_dtype,
+                        refresh_decay=refresh_decay,
+                        max_refresh_frac=max_refresh_frac,
+                        refresh_hysteresis=refresh_hysteresis)

@@ -1,8 +1,9 @@
 """Feature Loader (paper Section III-A) — cache- and dedup-aware host gather.
 
 Port of ``repro/graph/featload.py`` (the ``load`` and ``load_compact``
-paths).  Runs on the host: given a sampled ``MiniBatch`` it gathers feature
-rows from the dataset's ``FeatureSource`` for the Data Transfer stage.
+paths and the recent-rows LRU).  Runs on the host: given a sampled
+``MiniBatch`` it gathers feature rows from the dataset's ``FeatureSource``
+for the Data Transfer stage.
 
   * ``load``         — the full positional frontier (the CPU trainer reads
     it in place from host memory; dedup-off, cache-off accelerators ship
@@ -10,15 +11,21 @@ rows from the dataset's ``FeatureSource`` for the Data Transfer stage.
   * ``load_compact`` — the deduped transfer path: the frontier's unique ids
     are classified against the optional device cache and only *unique miss*
     rows are gathered and shipped; the on-device combine expands them.
+  * the recent-rows LRU (``recent_batches`` > 0 and a ``recent_key``) —
+    cross-iteration device-side dedup: ``load_compact`` remembers the unique
+    ids shipped to each consumer over its last few batches, does not gather
+    or ship again the rows still resident on its device (the transfer stage
+    re-reads them there), and drops that history whenever the cache version
+    moves.
 
 Rows come back as torch tensors in the transfer dtype (``float32`` or
 ``bfloat16``).  ``stats.bytes`` counts only bytes shipped host->device;
 every avoided ship lands in exactly one counter (``saved_bytes`` cache
-hits, ``dedup_saved_bytes`` in-batch duplicates), so shipped + saved bytes
-always rebuild the one-row-per-position baseline (plus bucket padding,
-tracked in ``padding_bytes``) — the same accounting as the reference.
-The union gather, the recent-rows LRU and stall accounting for disk tiers
-are not ported yet (ROADMAP).
+hits, ``dedup_saved_bytes`` in-batch duplicates, ``recent_saved_bytes``
+rows still resident from a recent batch), so shipped + saved bytes always
+rebuild the one-row-per-position baseline (plus bucket padding, tracked in
+``padding_bytes``) — the same accounting as the reference.  The union
+gather and stall accounting for disk tiers are not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import concurrent.futures as cf
 import dataclasses
 import threading
 import time
-from typing import Optional
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +59,9 @@ class LoadStats:
     saved_bytes: int = 0     # transfer bytes avoided by cache hits
     dedup_saved_bytes: int = 0  # transfer bytes avoided by deduplication
     padding_bytes: int = 0   # share of `bytes` that is shape-bucket padding
+    recent_rows: int = 0     # unique rows skipped: still device-resident
+                             #   from a recent batch (cross-iteration LRU)
+    recent_saved_bytes: int = 0  # transfer bytes those skips avoided
 
     @property
     def hit_rate(self) -> float:
@@ -68,12 +79,33 @@ class LoadStats:
 
 
 @dataclasses.dataclass
+class _ShippedBlock:
+    """Recent-rows LRU entry: the unique ids one batch freshly shipped to a
+    consumer device and, once its transfer stage ran, the device tensor
+    holding them.  ``array`` is written once by that transfer stage and read
+    only by later batches' transfer stages, which run in batch order, so a
+    batch that matched this entry at load time finds it filled."""
+    ids: np.ndarray          # sorted unique ids of the shipped fresh rows
+    version: int             # cache version the ship was classified at
+    array: Optional[torch.Tensor] = None  # [>= len(ids), F] device rows
+
+
+@dataclasses.dataclass
 class MissBlock:
     """Host-side output of a compact load: ``rows`` is the [M, F] unique-miss
     block and ``lookup`` the positional tables the on-device combine reads
-    (many positions may point at one row of ``rows``)."""
+    (many positions may point at one row of ``rows``).
+
+    With the recent-rows LRU, ``miss_index`` addresses the combined source
+    ``[recent segments... | fresh rows]``: ``recent`` lists (entry, row
+    indices) pairs to re-read from earlier batches' device tensors, and
+    ``shipped`` is this batch's own entry, whose ``array`` the transfer
+    stage fills."""
     rows: torch.Tensor
     lookup: CacheLookup
+    recent: List[Tuple[_ShippedBlock, np.ndarray]] = \
+        dataclasses.field(default_factory=list)
+    shipped: Optional[_ShippedBlock] = None
 
     @property
     def num_rows(self) -> int:
@@ -85,21 +117,30 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 # the load and transfer pipeline stages run in different threads and both
-# account into the same stats windows; every merge runs under _stats_lock
+# account into the same stats windows; every merge runs under _stats_lock.
+# The recent-rows history is touched by the load stage and by drop_recent
+# (from other threads), under _recent_lock; an entry's ``array`` is outside
+# it (one writer, the transfer stage, in batch order).
 @guarded_by("_stats_lock", "stats", "window", "host_stats")
+@guarded_by("_recent_lock", "_recent")
 class FeatureLoader:
     def __init__(self, dataset: GraphDataset, transfer_dtype: str = "float32",
                  num_threads: int = 1,
                  cache: Optional[FeatureCache] = None,
-                 dedup: bool = True):
+                 dedup: bool = True, recent_batches: int = 0):
         self.dataset = dataset
         self.source = dataset.feature_source
         self.transfer_dtype = transfer_dtype
         self.num_threads = max(1, int(num_threads))  # DRM's balance_thread knob
         self.cache = cache
         self.dedup = dedup
+        self.recent_batches = max(0, int(recent_batches))
+        # consumer key -> its last `recent_batches` shipped blocks
+        self._recent: Dict[object, Deque[_ShippedBlock]] = {}
+        self._recent_lock = threading.Lock()
         self.stats = LoadStats()       # transfer path (rows that cross PCIe)
-        self.window = LoadStats()      # transfer path, measurement window
+        self.window = LoadStats()      # transfer path since the last
+                                       #   refresh (the drift feedback's)
         self.host_stats = LoadStats()  # CPU-trainer direct host reads
         self._stats_lock = threading.Lock()
         # chunked-gather pool: created lazily, reused across loads
@@ -113,6 +154,16 @@ class FeatureLoader:
             target.merge(delta)
             if dest == "stats":        # transfer path also feeds the window
                 self.window.merge(delta)
+
+    def reset_window(self) -> None:
+        """Start a fresh measurement window (after a cache refresh, so the
+        drift feedback sees only post-refresh traffic)."""
+        with self._stats_lock:
+            self.window = LoadStats()
+
+    def snapshot_stats(self) -> LoadStats:
+        """Consistent copy of the cumulative transfer-path stats."""
+        return self.snapshot("stats")
 
     def snapshot(self, which: str = "stats") -> LoadStats:
         """Consistent copy of one stats window: ``"stats"`` (cumulative
@@ -170,16 +221,75 @@ class FeatureLoader:
         self._account("stats", LoadStats(rows=rows, bytes=nbytes,
                                          padding_bytes=nbytes))
 
-    def load_compact(self, batch: MiniBatch, pin: bool = False) -> MissBlock:
+    def drop_recent(self, key: object = None) -> None:
+        """Drop the recent-rows history of ``key`` (every consumer when
+        ``None``): a consumer whose transfer stage stopped filling its
+        entries must never be matched against again."""
+        with self._recent_lock:
+            if key is None:
+                self._recent.clear()
+            else:
+                self._recent.pop(key, None)
+
+    def _match_recent(self, key: object, look: CacheLookup):
+        """Split ``look``'s unique misses into rows resident in the
+        consumer's recent shipped blocks (at the SAME cache version) and
+        fresh ids, and remap the positional ``miss_index`` onto the
+        combined ``[recent segments... | fresh]`` layout.  Planning only:
+        ``look`` is not changed here."""
+        miss = look.miss_ids
+        with self._recent_lock:
+            dq = self._recent.get(key)
+            entries = [e for e in (dq or ())
+                       if e.version == look.version and e.ids.shape[0]]
+            if dq is not None and len(entries) != len(dq):
+                # a refresh moved the version: the history is dropped (the
+                # rows are value-identical, but residency never outlives
+                # the version it was priced at)
+                dq.clear()
+                dq.extend(entries)
+        taken = np.zeros(miss.shape[0], dtype=bool)
+        combined = np.empty(miss.shape[0], dtype=np.int32)
+        sources: List[Tuple[_ShippedBlock, np.ndarray]] = []
+        base = 0
+        # newest entry first: consecutive batches share the most rows
+        for e in reversed(entries):
+            if bool(taken.all()):
+                break
+            pos = np.searchsorted(e.ids, miss)
+            pos = np.minimum(pos, e.ids.shape[0] - 1)
+            m = (~taken) & (e.ids[pos] == miss)
+            k = int(np.count_nonzero(m))
+            if not k:
+                continue
+            sources.append((e, pos[m].astype(np.int32)))
+            combined[m] = base + np.arange(k, dtype=np.int32)
+            base += k
+            taken |= m
+        fresh_mask = ~taken
+        n_fresh = int(np.count_nonzero(fresh_mask))
+        combined[fresh_mask] = base + np.arange(n_fresh, dtype=np.int32)
+        new_miss_index = np.where(
+            look.slots >= 0, np.int32(0),
+            combined[look.miss_index]).astype(np.int32)
+        return miss[fresh_mask], sources, new_miss_index
+
+    def load_compact(self, batch: MiniBatch, pin: bool = False,
+                     recent_key: object = None) -> MissBlock:
         """Deduped transfer-path load: gather one row per unique miss id.
 
         With a cache only the frontier's unique ids are classified and only
         unique misses gathered; without one every unique id is a miss.
         With ``dedup=False`` a cache is required and one row per miss
         position ships.  The lookup only classifies here; cache and loader
-        stats are committed together after the gather succeeded.
-        ``pin=True`` registers the lookup as in flight: the consumer calls
-        ``cache.release_lookup(block.lookup)`` once after the combine.
+        stats are committed together after the gather succeeded, against
+        the original classification.  ``pin=True`` registers the lookup as
+        in flight: the consumer calls ``cache.release_lookup(block.lookup)``
+        once after the combine.  ``recent_key`` (with ``recent_batches`` >
+        0) engages the recent-rows LRU: misses still resident on that
+        consumer's device are neither gathered nor shipped, ``recent`` says
+        where the combine re-reads them, and ``shipped`` registers this
+        batch's fresh rows for later batches.
         """
         t0 = time.perf_counter()
         frontier = self._frontier(batch)
@@ -193,15 +303,38 @@ class FeatureLoader:
                     "load_compact without a FeatureCache requires dedup")
             look = compact_lookup(frontier)
             row_bytes = self._row_bytes
-        rows = to_transfer_dtype(self._gather(look.miss_ids),
+        use_recent = (recent_key is not None and self.recent_batches > 0
+                      and self.dedup)
+        if use_recent:
+            fresh_ids, recent_src, new_miss_index = \
+                self._match_recent(recent_key, look)
+        else:
+            fresh_ids, recent_src, new_miss_index = look.miss_ids, [], None
+        rows = to_transfer_dtype(self._gather(fresh_ids),
                                  self.transfer_dtype)
         dt = time.perf_counter() - t0
         if self.cache is not None:
             self.cache.record_lookup(look)
+        n_recent = look.num_miss - int(fresh_ids.shape[0])
         self._account("stats", LoadStats(
             rows=int(rows.shape[0]), bytes=_nbytes(rows), seconds=dt,
             total_rows=look.num_rows, unique_rows=look.num_unique,
             hit_rows=look.num_hit,
             saved_bytes=look.num_hit * row_bytes,
-            dedup_saved_bytes=look.dup_miss_rows * row_bytes))
-        return MissBlock(rows=rows, lookup=look)
+            dedup_saved_bytes=look.dup_miss_rows * row_bytes,
+            recent_rows=n_recent, recent_saved_bytes=n_recent * row_bytes))
+        shipped = None
+        if use_recent:
+            # the lookup now addresses the combined source layout; this
+            # batch's fresh rows join the consumer's history
+            look.miss_ids = fresh_ids
+            look.miss_index = new_miss_index
+            shipped = _ShippedBlock(ids=fresh_ids, version=look.version)
+            with self._recent_lock:
+                dq = self._recent.get(recent_key)
+                if dq is None or dq.maxlen != self.recent_batches:
+                    dq = deque(dq or (), maxlen=self.recent_batches)
+                    self._recent[recent_key] = dq
+                dq.append(shipped)
+        return MissBlock(rows=rows, lookup=look, recent=recent_src,
+                         shipped=shipped)

@@ -41,6 +41,15 @@ _KERNELS: Dict[str, Tuple[str, Dict[str, Tuple[object, List[object]]]]] = {
         "cache_combine_bf16": (_I, [_P, _P, _P, _P, _P, _I64, _I64, _P]),
         "cache_combine_error_string": (ctypes.c_char_p, [_I]),
     }),
+    "cache_update": ("cache_update.cu", {
+        "cache_update_f32": (_I, [_P, _P, _P, _I64, _I64, _P]),
+        "cache_update_bf16": (_I, [_P, _P, _P, _I64, _I64, _P]),
+        "cache_update_pipelined_f32": (_I, [_P, _P, _P, _I64, _I64, _I64,
+                                            _I, _P]),
+        "cache_update_pipelined_bf16": (_I, [_P, _P, _P, _I64, _I64, _I64,
+                                             _I, _P]),
+        "cache_update_error_string": (ctypes.c_char_p, [_I]),
+    }),
     "fused_update": ("fused_update.cu", {
         "fused_update_f32": (_I, [_P] * 8 + [_I64, _I64, _I64, _I, _P]),
         "fused_update_error_string": (ctypes.c_char_p, [_I]),

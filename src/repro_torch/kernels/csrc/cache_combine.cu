@@ -61,26 +61,27 @@ int combine(const void* cache, const void* miss, const int32_t* slots,
             void* stream) {
   if (n <= 0 || row_bytes <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = as_stream(stream);
-  // widest unit that divides the row and keeps every row start aligned
-  auto fits = [&](int64_t w) {
-    return row_bytes % w == 0 && aligned_to(out, w) &&
-           (cache == nullptr || aligned_to(cache, w)) &&
-           (miss == nullptr || aligned_to(miss, w));
-  };
   cudaError_t err;
-  if (fits(16)) {
-    err = launch<uint4>(cache, miss, slots, miss_index, out, n, row_bytes, st);
-  } else if (fits(8)) {
-    err = launch<uint2>(cache, miss, slots, miss_index, out, n, row_bytes, st);
-  } else if (fits(4)) {
-    err = launch<unsigned int>(cache, miss, slots, miss_index, out, n,
-                               row_bytes, st);
-  } else if (fits(2)) {
-    err = launch<unsigned short>(cache, miss, slots, miss_index, out, n,
+  switch (copy_unit(row_bytes, out, cache, miss)) {
+    case 16:
+      err = launch<uint4>(cache, miss, slots, miss_index, out, n, row_bytes,
+                          st);
+      break;
+    case 8:
+      err = launch<uint2>(cache, miss, slots, miss_index, out, n, row_bytes,
+                          st);
+      break;
+    case 4:
+      err = launch<unsigned int>(cache, miss, slots, miss_index, out, n,
                                  row_bytes, st);
-  } else {
-    err = launch<unsigned char>(cache, miss, slots, miss_index, out, n,
-                                row_bytes, st);
+      break;
+    case 2:
+      err = launch<unsigned short>(cache, miss, slots, miss_index, out, n,
+                                   row_bytes, st);
+      break;
+    default:
+      err = launch<unsigned char>(cache, miss, slots, miss_index, out, n,
+                                  row_bytes, st);
   }
   return static_cast<int>(err);
 }

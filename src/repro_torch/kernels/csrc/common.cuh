@@ -22,6 +22,20 @@ static inline cudaStream_t as_stream(void* stream) {
 
 static inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+// The widest copy unit (16, 8, 4, 2 or 1 bytes) that divides a row of
+// `row_bytes` and keeps every row start of each base pointer aligned (a null
+// pointer is aligned to anything).  The bitwise row copies (K1, K5, K6) move
+// rows in units of this size, so they are exact for any element type.
+static inline int64_t copy_unit(int64_t row_bytes, const void* a,
+                                const void* b, const void* c = nullptr) {
+  for (int64_t w = 16; w > 1; w /= 2) {
+    if (row_bytes % w == 0 && aligned_to(a, w) && aligned_to(b, w) &&
+        aligned_to(c, w))
+      return w;
+  }
+  return 1;
+}
+
 // f32 <-> storage-type conversions used by the reductions
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

@@ -1,9 +1,10 @@
 """Device-dispatching wrappers around the port's Hopper kernels.
 
-Port of ``repro/kernels/ops.py`` (the combine, the segment sum and the fused
-layer).  The tensor's device decides the path: a CUDA tensor launches the
-hand-written kernel (``csrc/*.cu``, built on first use by ``build.py``) or
-raises; a CPU tensor runs the plain PyTorch version in ``ref.py``.  There is
+Port of ``repro/kernels/ops.py`` (the combine, the refresh scatter, the
+segment sum and the fused layer).  The tensor's device decides the path:
+a CUDA tensor launches the hand-written kernel (``csrc/*.cu``, built on
+first use by ``build.py``) or raises; a CPU tensor runs the plain PyTorch
+version in ``ref.py``.  There is
 no fallback from a failed build or launch to the plain version.
 
 Each launch adds one to its kernel's counter (``kernel_launches()``), so a
@@ -23,12 +24,16 @@ import torch
 from . import ref
 from .build import library
 
-__all__ = ["assemble_features", "segment_weighted_sum_regular",
-           "fused_gnn_update", "kernel_launches", "reset_kernel_launches",
-           "KERNELS"]
+__all__ = ["assemble_features", "update_cache_rows", "scatter_rows_",
+           "segment_weighted_sum_regular", "fused_gnn_update",
+           "kernel_launches", "reset_kernel_launches", "KERNELS",
+           "UPDATE_ROW_BLOCK", "MAX_RING_BYTES"]
 
 # kernel name -> the wrapper's counter; bumped only where a kernel launches
-KERNELS = ("cache_combine", "fused_update", "segment_sum")
+KERNELS = ("cache_combine", "cache_update", "cache_update_pipelined",
+           "fused_update", "segment_sum")
+# kernel -> the library (csrc source) that holds it, where the names differ
+_LIBRARY = {"cache_update_pipelined": "cache_update"}
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()   # trainer threads launch concurrently
 
@@ -48,10 +53,11 @@ def reset_kernel_launches() -> None:
 def _launch(kernel: str, symbol: str, *args) -> None:
     """Call one C entry point on the current stream and count the launch;
     a non-zero ``cudaGetLastError`` raises."""
-    lib = library(kernel)
+    name = _LIBRARY.get(kernel, kernel)
+    lib = library(name)
     rc = getattr(lib, symbol)(*args)
     if rc != 0:
-        msg = getattr(lib, f"{kernel}_error_string")(rc)
+        msg = getattr(lib, f"{name}_error_string")(rc)
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} "
                            f"({msg.decode() if msg else '?'})")
     with _launch_lock:
@@ -126,6 +132,99 @@ def assemble_features(cache: Optional[torch.Tensor], miss: torch.Tensor,
             slots.data_ptr(), miss_index.data_ptr(), out.data_ptr(),
             n, f, _stream(miss))
     return out
+
+
+# ---------------------------------------------------- refresh scatter (K5/K6)
+
+_UPDATE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+UPDATE_ROW_BLOCK = 8         # rows per staged block of K6
+MAX_RING_BYTES = 232_448     # shared memory one block may use on Hopper
+
+
+def update_cache_rows(cache: torch.Tensor, rows: torch.Tensor, slots,
+                      pipeline_depth: int = 1) -> torch.Tensor:
+    """Scatter admitted rows into a hot block during a cache refresh:
+    ``out = cache; out[slots[i]] = rows[i]``, the last writer winning on a
+    slot named twice.
+
+    An empty update returns ``cache`` itself.  Otherwise the slots are
+    deduped keep-last on the host (GPU blocks run in no order), and the
+    result is a new block: ``cache`` is never written, so a combine still
+    reading the old version reads the old rows.  ``rows`` must lie on
+    ``cache``'s device; ``slots`` may be host numpy or a tensor.  A CPU
+    block takes the plain version; a CUDA block launches K5 at
+    ``pipeline_depth`` 1 and K6 at 2..4, or raises.
+    """
+    if isinstance(slots, torch.Tensor):
+        slots = slots.cpu().numpy()
+    slots = np.asarray(slots, dtype=np.int32)
+    if slots.shape[0] == 0:
+        return cache
+    # keep-last dedupe: unique() keeps the first occurrence, so scan the
+    # reversed list and map the indices back
+    _, first_in_rev = np.unique(slots[::-1], return_index=True)
+    keep = np.sort(slots.shape[0] - 1 - first_in_rev)
+    keep_t = torch.from_numpy(keep).to(rows.device)
+    slots = slots[keep]
+    if _on_cpu(cache):
+        return ref.cache_update(cache, rows[keep_t].to(cache.dtype),
+                                torch.from_numpy(slots))
+    out = cache.clone()
+    depth = int(pipeline_depth)
+    m = slots.shape[0]
+    mp = -(-m // UPDATE_ROW_BLOCK) * UPDATE_ROW_BLOCK if depth > 1 else m
+    # rows padded to the row block in the same gather that dedupes them;
+    # pad rows are staged by K6 but never written
+    live = torch.zeros((mp, rows.shape[1]), dtype=cache.dtype,
+                       device=cache.device)
+    torch.index_select(rows.to(cache.dtype), 0, keep_t, out=live[:m])
+    scatter_rows_(out, live, _index(slots, cache.device), depth)
+    return out
+
+
+def scatter_rows_(out: torch.Tensor, rows: torch.Tensor,
+                  slots: torch.Tensor, pipeline_depth: int = 1) -> None:
+    """In place: ``out[slots[i]] = rows[i]`` for ``i < len(slots)``, with
+    UNIQUE slots (``update_cache_rows`` dedupes first).  ``rows`` may hold
+    more rows than ``slots`` (K6's padding, never written).  A CPU tensor
+    takes the plain indexed copy; a CUDA tensor launches K5 at depth 1 and
+    K6 at depth 2..4, or raises."""
+    depth = int(pipeline_depth)
+    if not 1 <= depth <= 4:
+        raise ValueError(f"pipeline depth must be in 1..4, got {depth}")
+    m = int(slots.shape[0])
+    if _on_cpu(out):
+        out[slots.long()] = rows[:m].to(out.dtype)
+        return
+    suffix = _UPDATE_SUFFIX.get(out.dtype)
+    if suffix is None or rows.dtype != out.dtype:
+        raise TypeError(f"cache update: unsupported dtypes {out.dtype}, "
+                        f"{rows.dtype}")
+    if slots.dtype != torch.int32 or rows.shape[1] != out.shape[1] \
+            or rows.shape[0] < m:
+        raise ValueError("cache update: int32 slots and one row per slot "
+                         "of the block's width expected")
+    _check_tensors("scatter_rows_", out, rows, slots)
+    if m == 0:
+        return
+    f = int(out.shape[1])
+    if depth == 1:
+        _launch("cache_update", f"cache_update_{suffix}", out.data_ptr(),
+                rows.data_ptr(), slots.data_ptr(), m, f, _stream(out))
+        return
+    mp = int(rows.shape[0])
+    if mp % UPDATE_ROW_BLOCK:
+        raise ValueError(f"K6 takes rows padded to a multiple of "
+                         f"{UPDATE_ROW_BLOCK}, got {mp}")
+    ring = depth * UPDATE_ROW_BLOCK * f * out.element_size()
+    if ring > MAX_RING_BYTES:
+        raise ValueError(f"K6 ring of {ring} bytes (depth {depth}, "
+                         f"{UPDATE_ROW_BLOCK} rows of {f}) exceeds the "
+                         f"{MAX_RING_BYTES} bytes of shared memory a block "
+                         f"may use")
+    _launch("cache_update_pipelined", f"cache_update_pipelined_{suffix}",
+            out.data_ptr(), rows.data_ptr(), slots.data_ptr(), m, mp, f,
+            depth, _stream(out))
 
 
 # -------------------------------------------------------------- segment sum

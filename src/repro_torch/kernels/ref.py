@@ -9,6 +9,9 @@ kernels in ``csrc/`` compute, written as ordinary torch ops: the wrappers in
   ``out[i] = cache[slots[i]]`` if ``slots[i] >= 0`` else
   ``miss[miss_index[i]]``; a pure data movement, so kernel and plain
   version agree bit for bit.
+* ``cache_update`` — the refresh scatter: ``out = cache;
+  out[slots[i]] = rows[i]``, updates applied in index order so an aliased
+  slot keeps its last writer; bitwise, like the combine.
 * ``segment_weighted_sum_regular`` — the regular-layout aggregation: each
   destination owns ``fanout`` contiguous edge slots, weighted-summed in f32.
 * ``fused_gnn_update`` — aggregation fused with the update:
@@ -20,7 +23,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["assemble_features", "expand_rows",
+__all__ = ["assemble_features", "expand_rows", "cache_update",
            "segment_weighted_sum_regular", "fused_gnn_update"]
 
 
@@ -50,6 +53,29 @@ def expand_rows(rows: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
     """Dedup expansion: ``out[i] = rows[inverse[i]]`` (the cache-less
     combine)."""
     return rows[inverse.long()]
+
+
+def cache_update(cache: torch.Tensor, rows: torch.Tensor,
+                 slots: torch.Tensor) -> torch.Tensor:
+    """Cache scatter-update: ``out = cache; out[slots[i]] = rows[i]`` with
+    the updates applied in index order, so a slot named several times keeps
+    its LAST writer (a plain ``out[slots] = rows`` leaves that order
+    unspecified).  Functional: ``cache`` is not written.
+
+    cache: [K, F]; rows: [M, F]; slots: int [M] -> [K, F].
+    """
+    out = cache.clone()
+    m = int(slots.shape[0])
+    if m == 0:
+        return out
+    slots = slots.to(cache.device).long()
+    order = torch.arange(m, device=cache.device)
+    last = torch.full((cache.shape[0],), -1, dtype=torch.long,
+                      device=cache.device).scatter_reduce(
+                          0, slots, order, "amax")
+    winner = last[slots] == order
+    out[slots[winner]] = rows[winner].to(cache.device, cache.dtype)
+    return out
 
 
 def segment_weighted_sum_regular(x_nbr: torch.Tensor, w_edge: torch.Tensor,

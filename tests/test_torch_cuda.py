@@ -8,7 +8,8 @@ On the card, run this file alone:
 
 It imports neither JAX nor the reference package, which the card's
 machine does not have.  Each kernel is held against its plain version on
-the same inputs: the combine bit-equal, the segment sum rtol=atol=1e-5 in
+the same inputs: the combine and the refresh scatter (K5, K6) bit-equal,
+the segment sum rtol=atol=1e-5 in
 f32 (1e-2 in bf16: one rounding of the sum), the fused layer and every
 gradient rtol=atol=1e-4 (fp32 sums in another order than cuBLAS).
 """
@@ -55,6 +56,32 @@ def test_combine_bit_equal(cuda, dtype, f):
     assert torch.equal(got, ref.assemble_features(cache, miss, slots, mi))
     got = ops.assemble_features(None, miss, torch.full_like(mi, -1), mi)
     assert torch.equal(got, ref.expand_rows(miss, mi))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [100, 7])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_cache_update_bit_equal(cuda, dtype, f, depth):
+    """K5 (depth 1) and K6 (depth 2..4) with aliased slots, M not a multiple
+    of 8: bit-equal to the plain keep-last scatter, the input block
+    untouched."""
+    rng = np.random.default_rng(depth * 10 + f)
+    k, m = 20_000, 6_001
+    cache = torch.from_numpy(rng.standard_normal((k, f)).astype(
+        np.float32)).to(cuda, dtype)
+    rows = torch.from_numpy(rng.standard_normal((m, f)).astype(
+        np.float32)).to(cuda, dtype)
+    slots = rng.integers(0, k, m).astype(np.int32)     # with duplicates
+    before = cache.clone()
+    kernel = "cache_update" if depth == 1 else "cache_update_pipelined"
+    n0 = ops.kernel_launches()[kernel]
+    got = ops.update_cache_rows(cache, rows, slots, depth)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()[kernel] == n0 + 1
+    want = ref.cache_update(cache, rows, torch.from_numpy(slots).to(cuda))
+    assert torch.equal(got, want)
+    assert torch.equal(cache, before)
+    assert ops.update_cache_rows(cache, rows[:0], slots[:0], depth) is cache
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -105,6 +132,34 @@ def test_fused_layer_and_grads_match_plain(cuda, d, fanout, f, o):
     kb = torch.autograd.grad(ref.fused_gnn_update(*ins, fanout), ins, g)
     for x, y in zip(ka, kb):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+def test_refresh_on_card_bit_identical_and_launches_k5(cuda):
+    """Accel-only training with the dynamic cache refreshing on every
+    boundary gives the same losses, bit for bit, as refresh off, and the
+    commits went through K5."""
+    ds = make_dataset("ogbn-products", scale=0.01, seed=0)
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5))
+    runs = {}
+    for refresh in (False, True):
+        cfg = HybridConfig(total_batch=512, hybrid=False, use_drm=False,
+                           tfp_depth=2, cache_fraction=0.2,
+                           cache_refresh=refresh, cache_drift_threshold=0.0,
+                           recent_rows_batches=2,
+                           accel_platform="rtx-a5000")
+        tr = HybridGNNTrainer(ds, g, cfg)
+        if refresh:
+            tr.set_params(runs[False][2])
+        params0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        ops.reset_kernel_launches()
+        hist = tr.train(5)
+        tr.close()
+        runs[refresh] = ([m.loss for m in hist], ops.kernel_launches(),
+                         params0, tr.cache.version)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][3] > 0 and runs[False][3] == 0
+    assert runs[True][1]["cache_update"] >= 1
+    assert runs[False][1]["cache_update"] == 0
 
 
 @pytest.mark.parametrize("agg_impl", ["kernel_fused", "kernel"])

@@ -82,9 +82,6 @@ def test_trainer_default_device_requires_cuda(monkeypatch):
 @pytest.mark.parametrize("knob", [
     {"use_accel_sampler": True},
     {"cache_sharding": "sharded"},
-    {"cache_refresh": True},
-    {"async_refresh": True},
-    {"recent_rows_batches": 2},
     {"prefetch_windows": 2},
     {"mmap_lru_windows": 4},
     {"auto_tune": True},
@@ -96,6 +93,22 @@ def test_trainer_default_device_requires_cuda(monkeypatch):
 def test_out_of_slice_knob_raises(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HybridConfig(**knob)
+
+
+@pytest.mark.parametrize("knob", [
+    {"cache_refresh": True},
+    {"async_refresh": True},
+    {"recent_rows_batches": 2},
+    {"cache_refresh": True, "cache_refresh_period": 3},
+], ids=lambda k: "+".join(k))
+def test_dynamic_cache_knob_builds(knob):
+    cfg = HybridConfig(**knob)
+    assert all(getattr(cfg, k) == v for k, v in knob.items())
+
+
+def test_pipelined_combine_depth_names_k4():
+    with pytest.raises(NotImplementedError, match="K4"):
+        HybridConfig(kernel_pipeline_depth=2)
 
 
 def test_fault_injector_raises():

@@ -6,8 +6,11 @@ builtins the kernels use: a block runs as ``blockDim`` std::threads with a
 std::barrier for ``__syncthreads``, and ``kernel<<<grid, block, ...>>>``
 becomes a loop over the grid.  The wrappers in ``kernels.ops`` then drive
 these builds through the same ctypes entry points (argument types, pointers,
-shapes) and are held against the plain versions: the combine bit-equal, the
-segment sum and the fused layer within rtol=1e-5 / 1e-4.  This checks the
+shapes) and are held against the plain versions: the combine and the refresh
+scatter bit-equal, the segment sum and the fused layer within rtol=1e-5 /
+1e-4.  The ``cuda_pipeline.h`` primitives of the multi-buffered scatter run
+as synchronous copies and dynamic shared memory as a static buffer, so the
+ring's slot arithmetic is checked but not its overlap.  This checks the
 kernels' index math, masking and tile choice; it says nothing about speed
 or about what nvcc accepts, which only the card shows.
 """
@@ -36,8 +39,16 @@ CUDA_RUNTIME_H = r"""
 #define __shared__ static
 #define __launch_bounds__(x)
 #define __restrict__ __restrict
+#define __align__(n) alignas(n)
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 2; return 0; }
+template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) {
+  return 0; }
 typedef struct CUstream_st* cudaStream_t;
 struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
@@ -93,6 +104,18 @@ inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
 inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
 """
 
+CUDA_PIPELINE_H = r"""
+#pragma once
+#include <cstddef>
+#include <cstring>
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  std::memcpy(dst, src, n); }
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+"""
+
+_DYNAMIC_SMEM = re.compile(r"extern __shared__ (?:__align__\((\d+)\) )?"
+                           r"unsigned char (\w+)\[\];")
 _LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
 
 
@@ -101,6 +124,10 @@ def _emulated(src: str) -> str:
         grid, block = [c.strip() for c in m.group(2).split(",")][:2]
         return (f"emu_launch(dim3({grid}), dim3({block}), "
                 f"[&]{{ {m.group(1)}({m.group(3)}); }});")
+    # blocks run one after another here, so one static buffer per kernel
+    # serves as its dynamic shared memory
+    src = _DYNAMIC_SMEM.sub(r"alignas(16) static unsigned char \2[1 << 18];",
+                            src)
     return _LAUNCH.sub(repl, src)
 
 
@@ -113,6 +140,7 @@ def emulated_ops(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    (out / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
     shutil.copy(build.CSRC / "common.cuh", out / "common.cuh")
 
     def compile_one(name):
@@ -125,8 +153,8 @@ def emulated_ops(tmp_path_factory):
                        timeout=300)
         return name, build._bind(name, lib)
 
-    with ThreadPoolExecutor(3) as pool:
-        libs = dict(pool.map(compile_one, ops.KERNELS))
+    with ThreadPoolExecutor(4) as pool:
+        libs = dict(pool.map(compile_one, build._KERNELS))
     mp = pytest.MonkeyPatch()
     mp.setattr(ops, "library", libs.__getitem__)
     mp.setattr(ops, "_on_cpu", lambda t: False)
@@ -197,6 +225,41 @@ def test_emulated_fused_layer(emulated_ops, d, fanout, f, o, bias):
     got = emulated_ops.fused_gnn_update(xs, xn, we, ss, ws, wa, b, fanout)
     want = ref.fused_gnn_update(xs, xn, we, ss, ws, wa, b, fanout)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [100, 7])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_emulated_cache_update_bit_equal(emulated_ops, dtype, f, depth):
+    """K5 (depth 1) and K6 (depth 2..4) through ``update_cache_rows``:
+    M = 53 admitted rows (not a multiple of 8) with aliased slots, against
+    the plain keep-last scatter, bit for bit."""
+    rng = np.random.default_rng(depth * 100 + f)
+    k, m = 90, 53
+    cache = torch.from_numpy(rng.standard_normal((k, f)).astype(
+        np.float32)).to(dtype)
+    rows = torch.from_numpy(rng.standard_normal((m, f)).astype(
+        np.float32)).to(dtype)
+    rows[0, :2] = torch.tensor([-0.0, 1e-40])
+    slots = rng.integers(0, k, m).astype(np.int32)
+    slots[5] = slots[40]                  # a slot named twice: last wins
+    kernel = "cache_update" if depth == 1 else "cache_update_pipelined"
+    before = emulated_ops.kernel_launches()[kernel]
+    got = emulated_ops.update_cache_rows(cache, rows, slots, depth)
+    assert emulated_ops.kernel_launches()[kernel] == before + 1
+    want = ref.cache_update(cache, rows, torch.from_numpy(slots))
+    assert torch.equal(_bits(got), _bits(want))
+    assert not torch.equal(_bits(got), _bits(cache))   # rows really moved
+
+
+def test_emulated_cache_update_empty_and_ring_budget(emulated_ops):
+    cache = torch.zeros(10, 4)
+    assert emulated_ops.update_cache_rows(
+        cache, torch.zeros(0, 4), np.zeros(0, np.int32), 2) is cache
+    wide = torch.zeros(16, 2000)
+    with pytest.raises(ValueError, match="shared memory"):
+        emulated_ops.scatter_rows_(wide.clone(), wide[:8],
+                                   torch.arange(8, dtype=torch.int32), 4)
 
 
 def test_emulated_launches_are_counted(emulated_ops):
