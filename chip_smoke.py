@@ -11,13 +11,16 @@ drives the hybrid trainer (``repro_torch.core.HybridGNNTrainer``) on
 cache, dedup, DRM).  Phases, each printing one JSON line:
 
   env          versions, the card, nvcc, kernel build time
-  kernels      K1 combine (f32, bf16: bit-equal), K2 fused layer (SAGE split
-               W, GCN shared W) and K3 segment sum (f32, bf16) against their
-               plain versions, K2/K3 gradients against plain autograd, K5/K6
-               refresh scatter (depths 1, 2, 4; f32, bf16; the slots and
-               rows of a real first commit, plus aliased slots: bit-equal to
-               the plain keep-last scatter and to K5), and each kernel's
-               time, plain time, library time and bound
+  kernels      K1 combine (f32, bf16: bit-equal), K4 multi-buffered combine
+               (depths 2, 3, 4 on K1's inputs, f32 and bf16: bit-equal to K1
+               and to the plain version), K7 legacy combine (the same rows
+               through its (sel, row) tables: bit-equal), K2 fused layer
+               (SAGE split W, GCN shared W) and K3 segment sum (f32, bf16)
+               against their plain versions, K2/K3 gradients against plain
+               autograd, K5/K6 refresh scatter (depths 1, 2, 4; f32, bf16;
+               the slots and rows of a real first commit, plus aliased
+               slots: bit-equal to the plain keep-last scatter and to K5),
+               and each kernel's time, plain time, library time and bound
   train        ~10 iterations of the slice on the card; asserts finite
                losses, an accelerator share on every iteration, CUDA inputs
                and parameters, and K1/K2 launches on every accel iteration
@@ -33,6 +36,15 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
                (b)'s losses; (d) FeatureCache commits at
                kernel_pipeline_depth 2 and 4 launch K6 and give the depth-1
                device block bit for bit
+  shard        n_accel=4 accelerator-only (all four on cuda:0), cache 20 %
+               per device, kernel_pipeline_depth=2, 6 iterations, replicated
+               then sharded (hash placement) from the same weights: layer-0
+               inputs and losses bit-equal, K4 launched once per combine and
+               once per peer gather and K1 never; the shipped-byte ratio,
+               peer rows, modelled interconnect bytes and shard sizes
+  depth        the slice at kernel_pipeline_depth 2 against depth 1 from the
+               same weights, 3 iterations: losses and shares bit-equal, every
+               accelerator combine through K4
 
 then the card's name and power limit as nvidia-smi prints them, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -61,6 +73,11 @@ import torch  # noqa: E402
 K_SOURCES = {
     "cache_combine": ("src/repro_torch/kernels/csrc/cache_combine.cu",
                       "src/repro/kernels/gather_scatter_mm.py:291"),
+    "cache_combine_pipelined": (
+        "src/repro_torch/kernels/csrc/cache_combine.cu",
+        "src/repro/kernels/gather_scatter_mm.py:386"),
+    "cache_combine_legacy": ("src/repro_torch/kernels/csrc/cache_combine.cu",
+                             "src/repro/kernels/gather_scatter_mm.py:173"),
     "fused_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                      "src/repro/kernels/gather_scatter_mm.py:125"),
     "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
@@ -71,6 +88,8 @@ K_SOURCES = {
                                "src/repro/kernels/gather_scatter_mm.py:493"),
 }
 K6_DEPTHS = (2, 4)           # K6's line reports depth 2; the phase has both
+K4_DEPTHS = (2, 3, 4)        # K4's line reports depth 2
+SHARD_ACCEL = 4
 STAGES = ("t_sc", "t_load", "t_tran", "t_tc", "t_ta")
 
 
@@ -116,6 +135,11 @@ def close(a, b, rtol, atol, what) -> float:
     ok = bool(torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol))
     check(ok and a.shape == b.shape, f"{what}: max abs err {err}")
     return err
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a float tensor (so NaN payloads compare too)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 def nbytes(*ts) -> int:
@@ -198,14 +222,17 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
     uniq_src = int(np.unique(look.slots[look.slots >= 0]).size) + \
         int(np.unique(look.miss_index[look.slots < 0]).size)
     k1_bytes = n * f * 4 + n * 8 + uniq_src * f * 4
+    k1_bound = k1_bytes / peak_bw * 1e3
     out["cache_combine"] = dict(
         name="cache_combine", max_abs_err=0.0, shape=[n, f],
         ms=time_ms(lambda: ops.assemble_features(cache32, miss32, slots,
                                                  mi)),
         plain_ms=time_ms(lambda: ref.assemble_features(cache32, miss32,
                                                        slots, mi)),
-        library_ms=None, bound_ms=k1_bytes / peak_bw * 1e3,
-        bound_by="bytes", bytes=k1_bytes, flops=0)
+        library_ms=None, bound_ms=k1_bound, bound_by="bytes",
+        bytes=k1_bytes, flops=0)
+    out.update(pipelined_and_legacy_combine(cache32, miss32, look, dev,
+                                            k1_bytes, k1_bound))
 
     # ---- model tensors at the slice's widths ----------------------------
     d1 = b * (1 + fan2)                       # layer-1 destinations (26b)
@@ -333,6 +360,53 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
     out.update(refresh_scatter(trainer, b, peak_bw, dev))
     emit("kernels", b=b, platform=platform, **out)
     return out
+
+
+def pipelined_and_legacy_combine(cache32, miss32, look, dev, k1_bytes,
+                                 k1_bound) -> dict:
+    """K4 at depths 2..4 and K7 on K1's main-path inputs: bit-equal to K1
+    and to the plain versions (f32 and bf16), and their times.  Both compute
+    K1's function (K7 through (sel, row) tables), so they share K1's bytes
+    and bound."""
+    from repro_torch.kernels import ops, ref
+    slots = torch.from_numpy(look.slots).to(dev)
+    mi = torch.from_numpy(look.miss_index).to(dev)
+    hit = look.slots >= 0
+    sel = torch.from_numpy((~hit).astype(np.int32)).to(dev)
+    row = torch.from_numpy(np.where(hit, look.slots, look.miss_index)
+                           .astype(np.int32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        cache, miss = cache32.to(dtype), miss32.to(dtype)
+        k1 = bits(ops.assemble_features(cache, miss, slots, mi, 1))
+        plain = bits(ref.assemble_features(cache, miss, slots, mi))
+        for depth in K4_DEPTHS:
+            k4 = bits(ops.assemble_features(cache, miss, slots, mi, depth))
+            check(torch.equal(k4, k1) and torch.equal(k4, plain),
+                  f"K4 depth {depth} {dtype} not bit-equal to K1 and to "
+                  f"the plain version")
+        k7 = bits(ops.cache_combine_legacy(cache, miss, sel, row))
+        check(torch.equal(k7, k1), f"K7 {dtype} not bit-equal to K1")
+        check(torch.equal(k7, bits(ref.cache_combine_legacy(cache, miss, sel,
+                                                            row))),
+              f"K7 {dtype} not bit-equal to its plain version")
+    n, f = look.slots.shape[0], cache32.shape[1]
+    by_depth = {d: time_ms(lambda: ops.assemble_features(
+        cache32, miss32, slots, mi, d)) for d in K4_DEPTHS}
+    common = dict(max_abs_err=0.0, shape=[n, f], library_ms=None,
+                  bound_ms=k1_bound, bound_by="bytes", bytes=k1_bytes,
+                  flops=0)
+    return {
+        "cache_combine_pipelined": dict(
+            name="cache_combine_pipelined", ms=by_depth[K4_DEPTHS[0]],
+            ms_by_depth=by_depth,
+            plain_ms=time_ms(lambda: ref.assemble_features(
+                cache32, miss32, slots, mi)), **common),
+        "cache_combine_legacy": dict(
+            name="cache_combine_legacy",
+            ms=time_ms(lambda: ops.cache_combine_legacy(cache32, miss32, sel,
+                                                        row)),
+            plain_ms=time_ms(lambda: ref.cache_combine_legacy(
+                cache32, miss32, sel, row)), **common)}
 
 
 def first_commit(trainer, b: int):
@@ -572,6 +646,138 @@ def phase_refresh(ds, sage, slice_cfg, dev: torch.device) -> dict:
                 cache_update_pipelined=launches_d["cache_update_pipelined"])
 
 
+def spy_inputs(tr) -> dict:
+    """Record every iteration's layer-0 inputs, per trainer, as the
+    training thread receives them (iteration -> name -> tensor)."""
+    inputs: dict = {}
+    orig = tr._run_trainers
+
+    def run(item):
+        p = item.payload
+        inputs[p["iteration"]] = {n: x.clone()
+                                  for n, x in p["features"].items()}
+        return orig(item)
+    tr._run_trainers = run
+    return inputs
+
+
+def phase_shard(ds, sage, slice_cfg) -> dict:
+    """The sharded plane at n_accel=4 against the replicated cache, both
+    at kernel_pipeline_depth 2, from the same weights."""
+    from repro_torch.core import HybridGNNTrainer
+    from repro_torch.kernels import ops
+    iters = 6
+    cfg = dataclasses.replace(slice_cfg, n_accel=SHARD_ACCEL, hybrid=False,
+                              use_drm=False, kernel_pipeline_depth=2,
+                              shard_placement="hash")
+    runs = {}
+    weights = None
+    for sharding in ("replicated", "sharded"):
+        t0 = time.perf_counter()
+        tr = HybridGNNTrainer(ds, sage, dataclasses.replace(
+            cfg, cache_sharding=sharding))
+        build_s = time.perf_counter() - t0
+        if weights is None:
+            weights = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        tr.set_params(weights)
+        inputs = spy_inputs(tr)
+        peer_gathers = [0]
+        if sharding == "sharded":
+            orig = tr._assemble_sharded
+
+            def assemble(block, dev, orig=orig):
+                peer_gathers[0] += len(block.shard.peer_requests)
+                return orig(block, dev)
+            tr._assemble_sharded = assemble
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        hist = tr.train(iters)
+        wall = time.perf_counter() - t0
+        launches = ops.kernel_launches()
+        tr.close()
+        combines = sum(1 for m in hist for n in m.shares
+                       if n != "cpu" and m.shares[n] > 0)
+        cache = tr.cache
+        runs[sharding] = dict(
+            losses=[m.loss for m in hist], inputs=inputs, launches=launches,
+            combines=combines, peer_gathers=peer_gathers[0], build_s=build_s,
+            wall_s=wall, shares=[m.shares for m in hist],
+            iter_s=[m.iter_time for m in hist],
+            stages=[{k: getattr(m.times, k) for k in STAGES} for m in hist],
+            traffic=tr.feature_traffic(),
+            cache_nbytes=([s.nbytes for s in cache.shards]
+                          if sharding == "sharded" else [cache.nbytes]),
+            cache_rows=([s.capacity for s in cache.shards]
+                        if sharding == "sharded" else [cache.capacity]))
+    rep, sh = runs["replicated"], runs["sharded"]
+    check(all(math.isfinite(x) for x in sh["losses"]),
+          "shard: non-finite loss")
+    check(sh["losses"] == rep["losses"], "shard: losses differ from the "
+          "replicated cache's")
+    check(sorted(sh["inputs"]) == sorted(rep["inputs"]) == list(range(iters)),
+          "shard: one input set per iteration expected")
+    for it, xs in sh["inputs"].items():
+        check(sorted(xs) == sorted(rep["inputs"][it]) == [
+            f"accel{i}" for i in range(SHARD_ACCEL)],
+            f"shard: iteration {it} trainers {sorted(xs)}")
+        for name, x in xs.items():
+            check(torch.equal(x, rep["inputs"][it][name]),
+                  f"shard: layer-0 input of {name} at iteration {it} "
+                  f"differs")
+    check(sh["combines"] == rep["combines"] == SHARD_ACCEL * iters,
+          f"shard: combines {sh['combines']} {rep['combines']}")
+    for name, r in runs.items():
+        want = r["combines"] + r["peer_gathers"]
+        check(r["launches"]["cache_combine_pipelined"] == want
+              and r["launches"]["cache_combine"] == 0,
+              f"shard ({name}): K4 launches {r['launches']}, expected {want} "
+              f"(combines + peer gathers) and no K1")
+    check(sh["peer_gathers"] > 0 and sh["traffic"]["peer_rows"] > 0,
+          "shard: no peer rows")
+    ratio = rep["traffic"]["shipped_bytes"] / sh["traffic"]["shipped_bytes"]
+    check(ratio > 1.0, f"shard: shipped-byte ratio {ratio}")
+    res = {k: {f: v for f, v in r.items() if f != "inputs"}
+           for k, r in runs.items()}
+    emit("shard", shipped_ratio=ratio, peer_rows=sh["traffic"]["peer_rows"],
+         ici_bytes=sh["traffic"]["ici_bytes"],
+         union_saved_bytes=sh["traffic"]["union_saved_bytes"],
+         shard_nbytes=sh["cache_nbytes"], **res)
+    return sh["launches"]
+
+
+def phase_depth(ds, sage, slice_cfg) -> dict:
+    """The slice (hybrid, DRM) at kernel_pipeline_depth 2 against depth 1
+    from the same weights: the same shares and losses bit for bit."""
+    from repro_torch.core import HybridGNNTrainer
+    from repro_torch.kernels import ops
+    runs = {}
+    weights = None
+    for depth in (1, 2):
+        t = HybridGNNTrainer(ds, sage, dataclasses.replace(
+            slice_cfg, kernel_pipeline_depth=depth))
+        if weights is None:
+            weights = {k: v.cpu().numpy() for k, v in t.params.items()}
+        t.set_params(weights)
+        ops.reset_kernel_launches()
+        hist = t.train(3)
+        launches = ops.kernel_launches()
+        t.close()
+        runs[depth] = dict(losses=[m.loss for m in hist],
+                           shares=[m.shares for m in hist],
+                           launches=launches,
+                           accel_iters=sum(1 for m in hist
+                                           if m.shares.get("accel0", 0)))
+    one, two = runs[1], runs[2]
+    check(two["shares"] == one["shares"], "depth: shares differ")
+    check(two["losses"] == one["losses"], "depth: losses differ at depth 2")
+    check(two["accel_iters"] > 0 and
+          two["launches"]["cache_combine_pipelined"] == two["accel_iters"]
+          and two["launches"]["cache_combine"] == 0,
+          f"depth: launches {two['launches']}")
+    emit("depth", **{f"depth{d}": r for d, r in runs.items()})
+    return two["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -658,10 +864,16 @@ def main() -> int:
          shares=[m.shares for m in hist])
     refresh_launches = phase_refresh(ds, sage, slice_cfg,
                                      torch.device("cuda", 0))
+    shard_launches = phase_shard(ds, sage, slice_cfg)
+    phase_depth(ds, sage, slice_cfg)
 
     launches = dict(train["launches"])
     launches["segment_sum"] = seg_launches["segment_sum"]
     launches.update(refresh_launches)
+    # K4's path is the sharded plane; K7 lies on no path (a parity
+    # baseline), so the train run's count of it stands
+    launches["cache_combine_pipelined"] = \
+        shard_launches["cache_combine_pipelined"]
     kernels = []
     for name in ops.KERNELS:
         k = kern[name]

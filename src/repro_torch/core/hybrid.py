@@ -42,6 +42,19 @@ its memory is not reused while the combine reads it.  With
 batches are re-read on the device instead of shipped again (invalidated by
 any refresh).
 
+``cache_sharding="sharded"`` (with two or more accelerators and a cache)
+partitions the hot set into disjoint per-accelerator shards
+(``ShardedFeatureCache``, hash or degree placement): n shards hold n times
+the rows at the same per-device budget.  The load stage classifies every
+accelerator's frontier in one union lookup and gathers the union of their
+host misses once; the transfer stage pulls the rows resident on peer
+shards (``dist.exchange_peer_rows``) and combines them with the local
+shard and the fresh rows.  Sharding moves bytes, never values: losses are
+bit-identical to the replicated cache.  ``kernel_pipeline_depth`` (1..4)
+reaches every combine, every peer gather (K1 at 1, K4 at 2..4) and the
+cache's refresh scatter (K5 at 1, K6 at 2..4); every depth gives the same
+bits.
+
 Knobs of the reference that this slice does not port raise
 ``NotImplementedError`` naming the ROADMAP item that will port them; none
 is silently ignored.
@@ -58,13 +71,16 @@ import torch
 
 from ..annotations import guarded_by
 from ..device import accel_devices, resolve_device, synchronize, to_device
-from ..graph.featcache import build_cache, compact_lookup
-from ..graph.featload import FeatureLoader, MissBlock
+from ..dist.collectives import exchange_peer_rows
+from ..graph.featcache import (ShardPlacement, ShardedFeatureCache,
+                               build_cache, build_sharded_cache,
+                               compact_lookup)
+from ..graph.featload import FeatureLoader, MissBlock, ShardMissBlock
 from ..graph.models import (GNNConfig, init_params, loss_fn,
                             params_from_numpy)
 from ..graph.sampler import MiniBatch, NumpySampler
 from ..graph.storage import GraphDataset
-from ..kernels.ops import assemble_features
+from ..kernels.ops import assemble_features, assemble_features_sharded
 from ..optim.optimizers import adamw, apply_updates
 from .drm import Assignment, StageTimes
 from .perfmodel import PLATFORMS, initial_task_mapping
@@ -91,10 +107,11 @@ class HybridConfig:
     compression: str = "none"
     feature_dtype: str = "float32"    # transfer dtype: float32 | bfloat16
     cache_fraction: float = 0.0       # device hot-feature cache (0 = off)
-    cache_sharding: str = "replicated"
-    shard_placement: str = "hash"
+    cache_sharding: str = "replicated"  # | "sharded": a disjoint hot shard
+                                      #   per accelerator (n_accel >= 2)
+    shard_placement: str = "hash"     # sharded placement: hash | degree
     recent_rows_batches: int = 0
-    kernel_pipeline_depth: int = 1
+    kernel_pipeline_depth: int = 1    # 1..4: K1/K5 at 1, K4/K6 above
     cache_refresh: bool = False
     cache_refresh_frac: float = 0.25
     cache_refresh_decay: float = 0.5
@@ -130,9 +147,6 @@ class HybridConfig:
         for on, knob, item in (
                 (self.use_accel_sampler, "use_accel_sampler=True",
                  "accelerator sampler"),
-                (self.cache_sharding != "replicated",
-                 f"cache_sharding={self.cache_sharding!r}",
-                 "sharded plane with K4"),
                 (self.prefetch_windows > 0, "prefetch_windows>0",
                  "out-of-core storage tier"),
                 (self.mmap_lru_windows > 0, "mmap_lru_windows>0",
@@ -141,10 +155,6 @@ class HybridConfig:
                 (self.compression != "none",
                  f"compression={self.compression!r}",
                  "gradient compression"),
-                (self.kernel_pipeline_depth != 1,
-                 f"kernel_pipeline_depth={self.kernel_pipeline_depth} (the "
-                 f"combine at depth > 1 is K4)",
-                 "sharded plane with K4"),
                 (self.ckpt_every > 0, "ckpt_every>0", "checkpointing"),
                 (self.pipeline_watchdog_seconds > 0,
                  "pipeline_watchdog_seconds>0", "fault injection and "
@@ -155,6 +165,13 @@ class HybridConfig:
                     f"(ROADMAP, port queue: {item})")
         if self.feature_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"feature_dtype {self.feature_dtype!r}")
+        if self.cache_sharding not in ("replicated", "sharded"):
+            raise ValueError(f"cache_sharding {self.cache_sharding!r}")
+        if self.shard_placement not in ShardPlacement.POLICIES:
+            raise ValueError(f"shard_placement {self.shard_placement!r}")
+        if not 1 <= self.kernel_pipeline_depth <= 4:
+            raise ValueError(f"kernel_pipeline_depth must be in 1..4, got "
+                             f"{self.kernel_pipeline_depth}")
 
 
 @dataclasses.dataclass
@@ -226,12 +243,21 @@ class HybridGNNTrainer:
         # --- sampler, feature store: device hot cache + dedup loader --------
         self.cpu_sampler = NumpySampler(dataset.graph, gnn_cfg.fanouts,
                                         seed=cfg.seed + 1)
-        self.cache = build_cache(dataset, cfg.cache_fraction,
-                                 transfer_dtype=cfg.feature_dtype,
-                                 refresh_decay=cfg.cache_refresh_decay,
-                                 max_refresh_frac=cfg.cache_refresh_frac,
-                                 refresh_hysteresis=cfg
-                                 .cache_refresh_hysteresis)
+        # "sharded" partitions the hot set across the accelerators; below
+        # two there is nothing to partition and the cache stays replicated
+        refresh_kw = dict(transfer_dtype=cfg.feature_dtype,
+                          refresh_decay=cfg.cache_refresh_decay,
+                          max_refresh_frac=cfg.cache_refresh_frac,
+                          refresh_hysteresis=cfg.cache_refresh_hysteresis)
+        if (cfg.cache_sharding == "sharded" and cfg.n_accel >= 2
+                and cfg.cache_fraction > 0.0):
+            self.cache = build_sharded_cache(
+                dataset, cfg.cache_fraction, n_shards=cfg.n_accel,
+                placement=cfg.shard_placement, **refresh_kw)
+        else:
+            self.cache = build_cache(dataset, cfg.cache_fraction,
+                                     **refresh_kw)
+        self._sharded = isinstance(self.cache, ShardedFeatureCache)
         self.loader = FeatureLoader(dataset, transfer_dtype=cfg.feature_dtype,
                                     cache=self.cache, dedup=cfg.dedup,
                                     recent_batches=cfg.recent_rows_batches)
@@ -362,7 +388,17 @@ class HybridGNNTrainer:
         p = item.payload
         self.loader.num_threads = self.runtime.assignment.threads.get("load", 1)
         t0 = time.perf_counter()
+        # sharded plane: ONE union lookup and host gather serve every
+        # accelerator trainer of the batch (each unique miss row gathered
+        # once and handed to each trainer that needs it)
+        accel_mbs = {n: mb for n, mb in p["minibatch"].items() if n != "cpu"}
+        if self._sharded and accel_mbs:
+            ordinals = {n: int(n[len("accel"):]) for n in accel_mbs}
+            p["features"].update(
+                self.loader.load_union(accel_mbs, ordinals, pin=True))
         for name, mb in p["minibatch"].items():
+            if self._sharded and name != "cpu":
+                continue      # served by the union gather above
             # accelerator trainers take the compact transfer path (unique
             # miss rows against the on-device hot cache, or plain unique
             # rows when uncached); the CPU trainer's "device" is host
@@ -378,24 +414,37 @@ class HybridGNNTrainer:
         p["t"]["t_load"] = time.perf_counter() - t0
         return item
 
-    def _assemble(self, block: MissBlock, dev: torch.device) -> torch.Tensor:
-        """Ship the unique-miss rows + index tables and combine them with
-        the cached rows into the positional layer-0 input on ``dev``.
-
-        The miss block is padded to a 128-row bucket (never past the
-        frontier size), as the reference pads it to bound its compiled
-        shapes; the padding crosses the link, so it is charged to the
-        shipped bytes and the two packages account identically."""
-        look = block.lookup
-        rows = block.rows
+    def _ship_rows(self, rows: torch.Tensor, bucket_cap: int,
+                   dev: torch.device) -> torch.Tensor:
+        """Copy a block's host rows to ``dev``, padded to a 128-row bucket
+        (never past ``bucket_cap``), as the reference pads them to bound
+        its compiled shapes; the padding crosses the link, so it is charged
+        to the shipped bytes and the two packages account identically."""
         m = int(rows.shape[0])
-        bucket = min(-(-m // 128) * 128, look.num_rows)
+        bucket = min(-(-m // 128) * 128, bucket_cap)
         if m < bucket:
             pad = bucket - m
             rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
             self.loader.note_transfer_padding(
                 pad, pad * rows.shape[1] * rows.element_size())
-        miss = to_device(rows, dev)
+        return to_device(rows, dev)
+
+    def _cache_block(self, cache, dev: torch.device,
+                     version: int) -> torch.Tensor:
+        """``cache``'s block on ``dev`` at the version a lookup was
+        classified at (a refresh since the load stage must not rebind its
+        slots).  On a card the current stream reads it: its memory must not
+        be reused before that read ran, even once the version retires."""
+        block = cache.data_on(dev, version=version)
+        if dev.type == "cuda":
+            block.record_stream(torch.cuda.current_stream(dev))
+        return block
+
+    def _assemble(self, block: MissBlock, dev: torch.device) -> torch.Tensor:
+        """Ship the unique-miss rows + index tables and combine them with
+        the cached rows into the positional layer-0 input on ``dev``."""
+        look = block.lookup
+        miss = self._ship_rows(block.rows, look.num_rows, dev)
         if block.shipped is not None:
             # publish the device rows for the recent-rows LRU; only later
             # batches' transfer stages (in batch order) read them, and the
@@ -411,15 +460,39 @@ class HybridGNNTrainer:
         miss_index = to_device(look.miss_index, dev)
         cache_data = None
         if self.cache is not None:
-            # the block of the version the lookup was classified at: a
-            # refresh since the load stage must not rebind its slots
-            cache_data = self.cache.data_on(dev, version=look.version)
-            if dev.type == "cuda":
-                # this stream reads the block: its memory must not be
-                # reused before the combine ran, even once it retires
-                cache_data.record_stream(torch.cuda.current_stream(dev))
+            cache_data = self._cache_block(self.cache, dev, look.version)
             self.cache.release_lookup(look)
-        return assemble_features(cache_data, miss, slots, miss_index)
+        return assemble_features(cache_data, miss, slots, miss_index,
+                                 self.cfg.kernel_pipeline_depth)
+
+    def _assemble_sharded(self, block: ShardMissBlock,
+                          dev: torch.device) -> torch.Tensor:
+        """Sharded-plane combine: the layer-0 input is assembled from the
+        LOCAL shard block (slot hits), the rows pulled from peer shards (in
+        ring order) and the fresh rows the union gather shipped, the
+        combined source ``[peer rows | fresh rows]`` the union lookup's
+        ``miss_index`` addresses.  Every shard block is read at the version
+        the lookup pinned, so a refresh mid-pipeline stays invisible."""
+        sl = block.shard
+        look = block.lookup
+        depth = self.cfg.kernel_pipeline_depth
+        miss = self._ship_rows(block.rows, max(look.num_rows, 1), dev)
+        local = self._cache_block(self.cache.shards[sl.shard], dev,
+                                  look.version)
+        # each peer gather runs on the owner's device at the pinned
+        # version; only the requested rows hop to this device
+        peers = exchange_peer_rows(
+            sl.peer_requests,
+            lambda peer, ver: self.cache.shards[peer].data_on(
+                self._accel_device(f"accel{peer}"), version=ver),
+            dev, depth)
+        x = assemble_features_sharded(
+            local, peers + [miss], to_device(look.slots, dev),
+            to_device(look.miss_index, dev), depth)
+        # the combine and the peer gathers are queued on their blocks:
+        # release every shard pin so drained versions retire eagerly
+        self.cache.release_union(sl)
+        return x
 
     def _stage_transfer(self, item: PipelineItem) -> PipelineItem:
         p = item.payload
@@ -434,7 +507,9 @@ class HybridGNNTrainer:
                           else None)
             with torch.cuda.stream(stream):
                 feat = p["features"][name]
-                if isinstance(feat, MissBlock):
+                if isinstance(feat, ShardMissBlock):
+                    x = self._assemble_sharded(feat, dev)
+                elif isinstance(feat, MissBlock):
                     x = self._assemble(feat, dev)
                 else:
                     x = to_device(feat, dev)
@@ -522,17 +597,36 @@ class HybridGNNTrainer:
         dedup_saved_rows = stats.dedup_saved_bytes // self.cache.row_bytes
         return 1.0 - dedup_saved_rows / miss_positions
 
+    def _sharded_pricing(self, measured: float) -> Tuple[float, float, float]:
+        """Split a measured hit rate into its (local, peer) parts and derive
+        the union multicast factor from the window stats: the sharded
+        plane's Eq. 7/8 terms.  The window's hit rate counts local AND peer
+        positions (neither touches the host), so the model's
+        ``cache_hit_rate`` gets the local part only."""
+        if not self._sharded:
+            return measured, 0.0, 1.0
+        win = self.loader.snapshot("window")
+        if win.total_rows == 0:
+            return measured, 0.0, 1.0
+        rb = self.cache.row_bytes
+        peer = (win.peer_saved_bytes / rb) / win.total_rows
+        shipped = win.bytes - win.padding_bytes
+        denom = shipped + win.union_saved_bytes
+        uf = shipped / denom if denom > 0 else 1.0
+        return max(measured - peer, 0.0), peer, uf
+
     def _reprice_mapping(self, measured: float, alpha: float) -> None:
         """Re-run the initial task mapping with a measured hit rate and
         alpha and hand the shares to the runtime (the DRM fine-tunes from
         there)."""
+        local, peer, uf = self._sharded_pricing(measured)
         mapping = initial_task_mapping(
             PLATFORMS[self.cfg.host_platform],
             PLATFORMS[self.cfg.accel_platform],
             self.cfg.n_accel, self.cfg.total_batch,
             self.gnn_cfg.fanouts, self.gnn_cfg.layer_dims,
-            model=self.gnn_cfg.model, cache_hit_rate=measured,
-            dedup_factor=alpha,
+            model=self.gnn_cfg.model, cache_hit_rate=local,
+            dedup_factor=alpha, peer_hit_rate=peer, union_factor=uf,
             refresh_bytes_per_iter=self._refresh_bytes_per_iter)
         a = self.runtime.assignment
         n = max(self.cfg.n_accel, 1)
@@ -802,23 +896,31 @@ class HybridGNNTrainer:
         return float(np.mean([m.iter_time for m in hist]))
 
     def feature_traffic(self) -> Dict[str, float]:
-        """Cumulative feature-movement accounting for the whole run (the
-        reference's keys that this slice can produce): ``shipped_bytes``
-        crossed host->device (unique misses plus bucket padding),
-        ``saved_bytes`` the cache absorbed, ``dedup_saved_bytes`` frontier
-        dedup absorbed, ``recent_saved_bytes`` the recent-rows LRU absorbed
-        (``recent_rows`` rows), ``host_read_bytes`` the CPU trainer read in
-        place.  Shipped (minus padding) + the saved terms rebuild the
-        one-row-per-position baseline."""
+        """Cumulative feature-movement accounting for the whole run, the
+        reference's keys: ``shipped_bytes`` crossed host->device (unique
+        misses plus bucket padding), ``saved_bytes`` the (local) cache
+        absorbed, ``dedup_saved_bytes`` frontier dedup absorbed,
+        ``peer_saved_bytes`` peer shards served (``peer_rows`` rows),
+        ``union_saved_bytes`` the union gather's sharing absorbed,
+        ``recent_saved_bytes`` the recent-rows LRU absorbed (``recent_rows``
+        rows), ``host_read_bytes`` the CPU trainer read in place.  Shipped
+        (minus padding) + the saved terms rebuild the one-row-per-position
+        baseline.  ``ici_bytes`` models the peer hops and multicast copies
+        on the interconnect of a node with one card per trainer."""
         s = self.loader.snapshot()
         host = self.loader.snapshot("host_stats")
-        baseline = (s.bytes - s.padding_bytes) + s.saved_bytes \
-            + s.dedup_saved_bytes + s.recent_saved_bytes
+        baseline = ((s.bytes - s.padding_bytes) + s.saved_bytes
+                    + s.dedup_saved_bytes + s.peer_saved_bytes
+                    + s.union_saved_bytes + s.recent_saved_bytes)
         return {
             "shipped_rows": float(s.rows),
             "shipped_bytes": float(s.bytes),
             "saved_bytes": float(s.saved_bytes),
             "dedup_saved_bytes": float(s.dedup_saved_bytes),
+            "peer_rows": float(s.peer_rows),
+            "peer_saved_bytes": float(s.peer_saved_bytes),
+            "union_saved_bytes": float(s.union_saved_bytes),
+            "ici_bytes": float(s.ici_bytes),
             "recent_rows": float(s.recent_rows),
             "recent_saved_bytes": float(s.recent_saved_bytes),
             "padding_bytes": float(s.padding_bytes),

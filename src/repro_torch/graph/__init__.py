@@ -4,9 +4,11 @@ from .storage import (CSRGraph, DATASET_STATS, TRAIN_SPLIT, DenseFeatures,
                       FeatureSource, GraphDataset, HashedFeatures,
                       as_feature_source, make_dataset, synth_powerlaw_graph)
 from .sampler import MiniBatch, NumpySampler, frontier_sizes
-from .featcache import (CacheLookup, CacheStats, FeatureCache, build_cache,
-                        compact_lookup, wire_row_bytes)
-from .featload import FeatureLoader, LoadStats, MissBlock
+from .featcache import (CacheLookup, CacheStats, FeatureCache, ShardLookup,
+                        ShardPlacement, ShardedFeatureCache, UnionLookup,
+                        build_cache, build_sharded_cache, compact_lookup,
+                        wire_row_bytes)
+from .featload import FeatureLoader, LoadStats, MissBlock, ShardMissBlock
 from .models import (GNNConfig, forward, init_params, loss_fn, param_count,
                      params_from_numpy)
 
@@ -15,9 +17,10 @@ __all__ = [
     "FeatureSource", "GraphDataset", "HashedFeatures", "as_feature_source",
     "make_dataset", "synth_powerlaw_graph",
     "MiniBatch", "NumpySampler", "frontier_sizes",
-    "CacheLookup", "CacheStats", "FeatureCache", "build_cache",
-    "compact_lookup", "wire_row_bytes",
-    "FeatureLoader", "LoadStats", "MissBlock",
+    "CacheLookup", "CacheStats", "FeatureCache", "ShardLookup",
+    "ShardPlacement", "ShardedFeatureCache", "UnionLookup", "build_cache",
+    "build_sharded_cache", "compact_lookup", "wire_row_bytes",
+    "FeatureLoader", "LoadStats", "MissBlock", "ShardMissBlock",
     "GNNConfig", "forward", "init_params", "loss_fn", "param_count",
     "params_from_numpy",
 ]

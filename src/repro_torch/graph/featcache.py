@@ -36,6 +36,15 @@ stream; its CUDA event travels with the block and ``data_on`` makes the
 caller's current stream wait on it.  Blocks are never written in place:
 a commit clones the block first, so a combine still reading an old version
 reads the old rows.
+
+``ShardedFeatureCache`` partitions the hot set across the accelerators:
+``ShardPlacement`` gives every node one owner shard (SplitMix64 hash or
+contiguous hotness ranks), each shard is an ordinary ``FeatureCache`` over
+the ids it owns (versions, pins and refresh unchanged), and
+``lookup_union`` classifies every trainer's frontier as a local-shard hit,
+a peer-shard hit (pulled with ``dist.exchange_peer_rows``) or a fresh host
+miss (gathered once for the union of the trainers by
+``FeatureLoader.load_union``).
 """
 from __future__ import annotations
 
@@ -47,11 +56,14 @@ import numpy as np
 import torch
 
 from ..annotations import guarded_by, requires_lock
+from ..dist.collectives import ring_order
 from ..kernels.ops import update_cache_rows
 from .storage import FeatureSource, as_feature_source
 
-__all__ = ["CacheLookup", "CacheStats", "FeatureCache", "build_cache",
-           "compact_lookup", "wire_row_bytes", "to_transfer_dtype"]
+__all__ = ["CacheLookup", "CacheStats", "FeatureCache", "ShardLookup",
+           "ShardPlacement", "ShardedFeatureCache", "UnionLookup",
+           "build_cache", "build_sharded_cache", "compact_lookup",
+           "wire_row_bytes", "to_transfer_dtype"]
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -481,6 +493,34 @@ class FeatureCache:
                               np.float32(1.0))
                 np.add.at(self._node_hot, look.ids[~hit], np.float32(1.0))
 
+    def record_access(self, hit_slots: np.ndarray, hit_counts: np.ndarray,
+                      miss_ids: np.ndarray, miss_counts: np.ndarray,
+                      lookups: int = 1) -> None:
+        """Account a pre-aggregated, position-weighted access pattern: the
+        sharded plane records each shard's share of a union lookup in one
+        call.  ``hit_slots`` / ``miss_ids`` are unique entries and
+        ``*_counts`` the frontier positions that referenced each, the same
+        quantities ``record_lookup`` derives from a ``CacheLookup``."""
+        hit_rows = int(hit_counts.sum()) if hit_counts.size else 0
+        miss_rows = int(miss_counts.sum()) if miss_counts.size else 0
+        delta = CacheStats(
+            lookups=int(lookups), hit_rows=hit_rows, miss_rows=miss_rows,
+            unique_rows=int(hit_slots.shape[0] + miss_ids.shape[0]),
+            saved_bytes=hit_rows * self.row_bytes)
+        with self._lock:
+            self.stats.merge(delta)
+            self.epoch_stats.merge(delta)
+            if self.track_hotness:
+                if self._node_hot is None:
+                    self._node_hot = np.zeros(self.num_nodes,
+                                              dtype=np.float32)
+                if self.capacity and hit_slots.size:
+                    np.add.at(self._slot_hot, hit_slots,
+                              hit_counts.astype(np.float32))
+                if miss_ids.size:
+                    np.add.at(self._node_hot, miss_ids,
+                              miss_counts.astype(np.float32))
+
     def stats_snapshot(self) -> Tuple[CacheStats, CacheStats]:
         """(lifetime, epoch-window) stats copies, taken atomically."""
         with self._lock:
@@ -701,3 +741,402 @@ def build_cache(dataset, fraction: float,
                         refresh_decay=refresh_decay,
                         max_refresh_frac=max_refresh_frac,
                         refresh_hysteresis=refresh_hysteresis)
+
+
+# ---------------------------------------------------------------------------
+# Sharded hot-feature plane: disjoint per-accelerator shards and the union
+# classification (port of repro/graph/featcache.py:890-1316).
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """SplitMix64 finalizer: a deterministic avalanching id hash, so hash
+    placement spreads hub nodes uniformly across shards."""
+    z = x.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+class ShardPlacement:
+    """Disjoint, exhaustive node id -> shard ownership.
+
+    ``hash``: SplitMix64-mixed id modulo ``n_shards`` (hubs spread
+    uniformly; the default).  ``degree``: contiguous hotness-rank ranges,
+    shard 0 owning the hottest ceil(N/n) nodes.  Both are pure functions of
+    (num_nodes, n_shards, policy, hotness), so every shard and trainer
+    derives the same owner table."""
+
+    POLICIES = ("hash", "degree")
+
+    def __init__(self, num_nodes: int, n_shards: int,
+                 policy: str = "hash",
+                 hotness: Optional[np.ndarray] = None):
+        if policy not in self.POLICIES:
+            raise ValueError(f"unknown shard placement {policy!r} "
+                             f"(choose from {self.POLICIES})")
+        self.num_nodes = int(num_nodes)
+        self.n_shards = int(max(1, n_shards))
+        self.policy = policy
+        if policy == "hash":
+            ids = np.arange(self.num_nodes, dtype=np.uint64)
+            owner = (_mix64(ids) % np.uint64(self.n_shards)).astype(np.int32)
+        else:
+            if hotness is None:
+                raise ValueError("degree placement needs a hotness vector")
+            hotness = np.asarray(hotness, dtype=np.float64)
+            # stable order: equal-hotness ties deterministic across runs
+            rank = np.argsort(-hotness, kind="stable")
+            span = max(1, -(-self.num_nodes // self.n_shards))
+            owner = np.empty(self.num_nodes, dtype=np.int32)
+            owner[rank] = (np.arange(self.num_nodes) // span
+                           ).astype(np.int32)
+        self.owner = owner
+
+    def owner_of(self, ids: np.ndarray) -> np.ndarray:
+        """Owning shard ordinal per id (int32)."""
+        return self.owner[np.asarray(ids, dtype=np.int64)]
+
+
+@dataclasses.dataclass
+class ShardLookup:
+    """One trainer's frontier classified against the sharded plane.
+
+    ``look`` is a ``CacheLookup`` against the trainer's LOCAL shard:
+    ``slots`` index the local block (-1 otherwise), ``miss_index`` points
+    into the combined transfer source ``[peer rows (ring order) | fresh host
+    rows]`` and ``miss_ids`` holds only the fresh ids the host gathers.
+    ``peer_requests`` name the rows to pull from each peer shard, at that
+    shard's classification version."""
+    look: CacheLookup
+    shard: int                    # the trainer's own shard ordinal
+    peer_requests: List[Tuple[int, np.ndarray, int]]
+    pinned: List[Tuple[int, int]]  # (shard, version) pins to release
+    peer_rows: int = 0            # unique rows pulled from peer shards
+    peer_positions: int = 0       # frontier positions served by peers
+    local_positions: int = 0      # frontier positions served locally
+
+
+@dataclasses.dataclass
+class UnionLookup:
+    """All trainers' classifications for one batch, plus the per-shard
+    accounting deferred until the union gather succeeded (as
+    ``lookup(record=False)`` defers a replicated lookup's)."""
+    per_trainer: Dict[str, ShardLookup]
+    record_payload: List[tuple]
+
+
+# the lock covers only the memoized merged slot table; the shards guard
+# their own state, and placement / row_bytes / shards are immutable after
+# construction
+@guarded_by("_lock", "_merged_key", "_merged_table")
+class ShardedFeatureCache:
+    """Partitioned hot-feature plane: ``n_shards`` disjoint per-device
+    ``FeatureCache`` shards over one source, n times the rows at the same
+    per-device budget.
+
+    A frontier position resolves in priority order: local shard hit (on the
+    trainer's device), peer shard hit (one row hop via
+    ``dist.exchange_peer_rows``), host miss (gathered once for the union of
+    all trainers' fresh sets by ``FeatureLoader.load_union``).  Each shard
+    keeps its own version and pin protocol; a union lookup snapshots every
+    shard once and pins one reference per trainer, so a refresh of any
+    shard mid-pipeline is invisible as in the replicated cache."""
+
+    def __init__(self, source: "FeatureSource | np.ndarray",
+                 hotness: np.ndarray, capacity_per_shard: int,
+                 n_shards: int, placement: str = "hash",
+                 transfer_dtype: str = "float32", **refresh_kw):
+        source = as_feature_source(source)
+        num_nodes, feat_dim = source.shape
+        hotness = np.asarray(hotness, dtype=np.float64)
+        if hotness.shape[0] != num_nodes:
+            raise ValueError("hotness must have one entry per node")
+        self.num_nodes = int(num_nodes)
+        self.feat_dim = int(feat_dim)
+        self.n_shards = int(max(1, n_shards))
+        self.transfer_dtype = transfer_dtype
+        self.row_bytes = wire_row_bytes(feat_dim, transfer_dtype)
+        self.placement = ShardPlacement(num_nodes, self.n_shards,
+                                        placement, hotness)
+        hmin = float(hotness.min()) if num_nodes else 0.0
+        self.shards: List[FeatureCache] = []
+        for d in range(self.n_shards):
+            owned = self.placement.owner == d
+            # owned hotness shifted strictly positive and the rest zeroed:
+            # the shard's top-K pick never takes an id it does not own
+            h_d = np.where(owned, hotness - hmin + 1.0, 0.0)
+            cap_d = int(min(int(capacity_per_shard), int(owned.sum())))
+            self.shards.append(
+                FeatureCache(source, h_d, cap_d,
+                             transfer_dtype=transfer_dtype, **refresh_kw))
+        mass = sum(float(hotness[s.cached_ids].sum()) for s in self.shards)
+        self._expected_hit_rate = mass / max(float(hotness.sum()), 1e-12)
+        self._lock = threading.Lock()
+        self._merged_key: Optional[tuple] = None
+        self._merged_table: Optional[np.ndarray] = None
+
+    # ------------------------------------------------------------ plumbing
+
+    @property
+    def capacity(self) -> int:
+        """Resident rows across the shards."""
+        return sum(s.capacity for s in self.shards)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes pinned across ALL shards (one shard per device: the
+        per-device budget is one shard's block)."""
+        return sum(s.nbytes for s in self.shards)
+
+    @property
+    def expected_hit_rate(self) -> float:
+        """Hotness mass covered by the union of the shards: the design-time
+        (local + peer) hit estimate for Eq. 7/8."""
+        return self._expected_hit_rate
+
+    @property
+    def version(self) -> int:
+        """Sum of the shard versions: moves whenever any shard commits."""
+        return sum(s.snapshot()[1] for s in self.shards)
+
+    @property
+    def slot_of(self) -> np.ndarray:
+        """Merged id -> slot table (the slot in the OWNER shard's block;
+        >= 0 means resident somewhere in the plane), memoized per vector
+        of shard versions."""
+        snaps = [s.snapshot() for s in self.shards]
+        key = tuple(v for _, v in snaps)
+        with self._lock:
+            if key == self._merged_key and self._merged_table is not None:
+                return self._merged_table
+        merged = np.full(self.num_nodes, -1, dtype=np.int32)
+        for table, _ in snaps:
+            resident = table >= 0
+            # shards own disjoint id sets: the scatters cannot collide
+            merged[resident] = table[resident]
+        with self._lock:
+            self._merged_key, self._merged_table = key, merged
+            return self._merged_table
+
+    # knobs forwarded to every shard
+
+    @property
+    def keep_versions(self) -> int:
+        return self.shards[0].keep_versions
+
+    @keep_versions.setter
+    def keep_versions(self, value: int) -> None:
+        for s in self.shards:
+            s.keep_versions = value
+
+    @property
+    def track_hotness(self) -> bool:
+        return self.shards[0].track_hotness
+
+    @track_hotness.setter
+    def track_hotness(self, value: bool) -> None:
+        for s in self.shards:
+            s.track_hotness = value
+
+    @property
+    def kernel_pipeline_depth(self) -> int:
+        return self.shards[0].kernel_pipeline_depth
+
+    @kernel_pipeline_depth.setter
+    def kernel_pipeline_depth(self, value: int) -> None:
+        for s in self.shards:
+            s.kernel_pipeline_depth = value
+
+    # aggregated observability
+
+    @property
+    def stage_failures(self) -> int:
+        return sum(s.stage_failures for s in self.shards)
+
+    @property
+    def refreshes(self) -> int:
+        return sum(s.refreshes for s in self.shards)
+
+    @property
+    def refresh_swapped_rows(self) -> int:
+        return sum(s.refresh_swapped_rows for s in self.shards)
+
+    @property
+    def staged_ready(self) -> bool:
+        return any(s.staged_ready for s in self.shards)
+
+    def measured_hit_rate(self) -> float:
+        """Positional (local + peer) hit rate over the shards' current
+        epoch windows, or their lifetime totals before any window filled."""
+        epoch_hit = epoch_tot = life_hit = life_tot = 0
+        for s in self.shards:
+            life, epoch = s.stats_snapshot()
+            epoch_hit += epoch.hit_rows
+            epoch_tot += epoch.total_rows
+            life_hit += life.hit_rows
+            life_tot += life.total_rows
+        if epoch_tot:
+            return epoch_hit / epoch_tot
+        return life_hit / max(life_tot, 1)
+
+    def retained_versions(self) -> Dict[int, List[int]]:
+        """Per-shard retained versions."""
+        return {d: s.retained_versions() for d, s in enumerate(self.shards)}
+
+    def retained_bytes(self) -> int:
+        """Undo-log bytes summed across the shards."""
+        return sum(s.retained_bytes() for s in self.shards)
+
+    # -------------------------------------------------------- union lookup
+
+    def lookup_union(self, frontiers: Dict[str, np.ndarray],
+                     ordinals: Dict[str, int], pin: bool = False,
+                     record: bool = True) -> UnionLookup:
+        """Classify every trainer's frontier against the plane in one pass:
+        local-shard hits, peer-shard hits (grouped per owner in ring order
+        from the trainer's ordinal) and fresh host misses.
+
+        Every shard is snapshotted once and, with ``pin=True``, pinned once
+        per trainer; the trainer releases a batch's pins with
+        ``release_union`` after its combine.  With ``record=False`` the
+        per-shard accounting travels in the payload and ``record_union``
+        applies it later (the loader records after its gather)."""
+        npin = len(frontiers) if pin else 0
+        snaps = [s.snapshot(pin=npin) for s in self.shards]
+        tables = [t for t, _ in snaps]
+        vers = [v for _, v in snaps]
+        owner_all = self.placement.owner
+        acc: List[Dict[str, Any]] = [
+            {"hs": [], "hc": [], "mi": [], "mc": [], "lk": 0}
+            for _ in range(self.n_shards)]
+        per: Dict[str, ShardLookup] = {}
+        for name in sorted(frontiers):
+            me = int(ordinals[name])
+            ids = np.asarray(frontiers[name], dtype=np.int64)
+            uniq, inverse = np.unique(ids, return_inverse=True)
+            inverse = inverse.astype(np.int32)
+            counts = np.bincount(inverse, minlength=uniq.shape[0])
+            owner = owner_all[uniq]
+            uslots = np.full(uniq.shape[0], -1, dtype=np.int32)
+            for d in range(self.n_shards):
+                sel = owner == d
+                if sel.any():
+                    uslots[sel] = tables[d][uniq[sel]]
+            hit = uslots >= 0
+            # combined transfer-source row per unique: peer rows first
+            # (ring order from me, each group in id order), then the fresh
+            # host rows; the transfer stage concatenates in the same order
+            u_midx = np.zeros(uniq.shape[0], dtype=np.int32)
+            base = 0
+            peer_requests: List[Tuple[int, np.ndarray, int]] = []
+            peer_rows = peer_pos = 0
+            for p in ring_order(self.n_shards, me):
+                sel = hit & (owner == p)
+                k = int(np.count_nonzero(sel))
+                if k:
+                    u_midx[sel] = base + np.arange(k, dtype=np.int32)
+                    peer_requests.append(
+                        (p, uslots[sel].astype(np.int32), vers[p]))
+                    peer_rows += k
+                    peer_pos += int(counts[sel].sum())
+                    base += k
+            fresh = ~hit
+            n_fresh = int(np.count_nonzero(fresh))
+            if n_fresh:
+                u_midx[fresh] = base + np.arange(n_fresh, dtype=np.int32)
+            local_sel = hit & (owner == me)
+            slots_u = np.where(local_sel, uslots,
+                               np.int32(-1)).astype(np.int32)
+            look = CacheLookup(
+                ids=ids, slots=slots_u[inverse],
+                miss_index=u_midx[inverse], miss_ids=uniq[fresh],
+                unique_ids=uniq, inverse=inverse, version=vers[me])
+            per[name] = ShardLookup(
+                look=look, shard=me, peer_requests=peer_requests,
+                pinned=([(d, vers[d]) for d in range(self.n_shards)]
+                        if pin else []),
+                peer_rows=peer_rows, peer_positions=peer_pos,
+                local_positions=int(counts[local_sel].sum()))
+            # hotness and stats land on the OWNER shard (position-weighted),
+            # so refresh admission only considers owned ids and the shards
+            # stay disjoint through every refresh
+            for d in range(self.n_shards):
+                seld = owner == d
+                h = seld & hit
+                m = seld & fresh
+                a = acc[d]
+                a["lk"] += 1
+                if h.any():
+                    a["hs"].append(uslots[h])
+                    a["hc"].append(counts[h])
+                if m.any():
+                    a["mi"].append(uniq[m])
+                    a["mc"].append(counts[m])
+        payload = []
+        for d, a in enumerate(acc):
+            payload.append((
+                d,
+                np.concatenate(a["hs"]) if a["hs"] else
+                np.zeros(0, dtype=np.int32),
+                np.concatenate(a["hc"]) if a["hc"] else
+                np.zeros(0, dtype=np.int64),
+                np.concatenate(a["mi"]) if a["mi"] else
+                np.zeros(0, dtype=np.int64),
+                np.concatenate(a["mc"]) if a["mc"] else
+                np.zeros(0, dtype=np.int64),
+                a["lk"]))
+        union = UnionLookup(per_trainer=per, record_payload=payload)
+        if record:
+            self.record_union(union)
+        return union
+
+    def record_union(self, union: UnionLookup) -> None:
+        """Apply a deferred union lookup's per-shard accounting."""
+        for d, hs, hc, mi, mc, lk in union.record_payload:
+            self.shards[d].record_access(hs, hc, mi, mc, lookups=lk)
+        union.record_payload = []
+
+    def release_union(self, shard_look: ShardLookup) -> None:
+        """Release one trainer's per-shard pins of one batch."""
+        for d, ver in shard_look.pinned:
+            self.shards[d].release_version(ver)
+        shard_look.pinned = []
+
+    # ------------------------------------------------------------- refresh
+    # shard by shard: each stages (plans and gathers) and commits its own
+    # owned rows, so disjointness holds and each keeps its own versions
+
+    def stage(self, max_swap: Optional[int] = None) -> int:
+        return sum(s.stage(max_swap) for s in self.shards)
+
+    def commit(self) -> int:
+        return sum(s.commit() for s in self.shards)
+
+    def discard_staged(self) -> int:
+        return sum(s.discard_staged() for s in self.shards)
+
+    def refresh(self, max_swap: Optional[int] = None) -> int:
+        self.stage(max_swap)
+        return self.commit()
+
+
+def build_sharded_cache(dataset, fraction: float, n_shards: int,
+                        placement: str = "hash",
+                        transfer_dtype: str = "float32",
+                        refresh_decay: float = 0.5,
+                        max_refresh_frac: float = 0.25,
+                        refresh_hysteresis: float = 1.25
+                        ) -> Optional[ShardedFeatureCache]:
+    """Sharded plane at the per-device budget of ``build_cache``:
+    ``fraction`` of the nodes per shard, so n shards hold up to n times the
+    replicated rows (None when the budget rounds to 0)."""
+    if fraction <= 0.0 or n_shards < 1:
+        return None
+    capacity = int(round(dataset.num_nodes * min(fraction, 1.0)))
+    if capacity == 0:
+        return None
+    return ShardedFeatureCache(
+        dataset.feature_source, dataset.feature_hotness(), capacity,
+        n_shards, placement=placement, transfer_dtype=transfer_dtype,
+        refresh_decay=refresh_decay, max_refresh_frac=max_refresh_frac,
+        refresh_hysteresis=refresh_hysteresis)

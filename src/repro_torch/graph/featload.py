@@ -1,9 +1,9 @@
 """Feature Loader (paper Section III-A) — cache- and dedup-aware host gather.
 
-Port of ``repro/graph/featload.py`` (the ``load`` and ``load_compact``
-paths and the recent-rows LRU).  Runs on the host: given a sampled
-``MiniBatch`` it gathers feature rows from the dataset's ``FeatureSource``
-for the Data Transfer stage.
+Port of ``repro/graph/featload.py`` (the ``load``, ``load_compact`` and
+``load_union`` paths and the recent-rows LRU).  Runs on the host: given a
+sampled ``MiniBatch`` it gathers feature rows from the dataset's
+``FeatureSource`` for the Data Transfer stage.
 
   * ``load``         — the full positional frontier (the CPU trainer reads
     it in place from host memory; dedup-off, cache-off accelerators ship
@@ -11,6 +11,13 @@ for the Data Transfer stage.
   * ``load_compact`` — the deduped transfer path: the frontier's unique ids
     are classified against the optional device cache and only *unique miss*
     rows are gathered and shipped; the on-device combine expands them.
+  * ``load_union``   — the sharded-plane load: every accelerator trainer's
+    frontier is classified against the ``ShardedFeatureCache`` in one union
+    lookup, the union of their fresh-miss sets is gathered once, and each
+    trainer's block gets only its slice (the multicast).  The accounting
+    models the physical route of a node with one card per trainer: a union
+    row crosses PCIe once (``bytes``), its extra copies and the peer-shard
+    row hops ride the accelerator interconnect (``ici_bytes``).
   * the recent-rows LRU (``recent_batches`` > 0 and a ``recent_key``) —
     cross-iteration device-side dedup: ``load_compact`` remembers the unique
     ids shipped to each consumer over its last few batches, does not gather
@@ -20,12 +27,14 @@ for the Data Transfer stage.
 
 Rows come back as torch tensors in the transfer dtype (``float32`` or
 ``bfloat16``).  ``stats.bytes`` counts only bytes shipped host->device;
-every avoided ship lands in exactly one counter (``saved_bytes`` cache
-hits, ``dedup_saved_bytes`` in-batch duplicates, ``recent_saved_bytes``
-rows still resident from a recent batch), so shipped + saved bytes always
-rebuild the one-row-per-position baseline (plus bucket padding, tracked in
-``padding_bytes``) — the same accounting as the reference.  The union
-gather and stall accounting for disk tiers are not ported yet (ROADMAP).
+every avoided ship lands in exactly one counter (``saved_bytes`` local
+cache hits, ``peer_saved_bytes`` peer-shard hits, ``dedup_saved_bytes``
+in-batch duplicates, ``union_saved_bytes`` rows shared between trainers of
+a union gather, ``recent_saved_bytes`` rows still resident from a recent
+batch), so shipped + saved bytes always rebuild the one-row-per-position
+baseline (plus bucket padding, tracked in ``padding_bytes``) — the same
+accounting as the reference.  Stall accounting for disk tiers is not
+ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -34,18 +43,19 @@ import dataclasses
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..annotations import guarded_by
-from .featcache import (CacheLookup, FeatureCache, compact_lookup,
-                        to_transfer_dtype, wire_row_bytes)
+from .featcache import (CacheLookup, FeatureCache, ShardedFeatureCache,
+                        ShardLookup, compact_lookup, to_transfer_dtype,
+                        wire_row_bytes)
 from .sampler import MiniBatch
 from .storage import GraphDataset
 
-__all__ = ["FeatureLoader", "LoadStats", "MissBlock"]
+__all__ = ["FeatureLoader", "LoadStats", "MissBlock", "ShardMissBlock"]
 
 
 @dataclasses.dataclass
@@ -56,9 +66,16 @@ class LoadStats:
     total_rows: int = 0      # frontier positions requested (hits + misses)
     unique_rows: int = 0     # unique ids among the requested positions
     hit_rows: int = 0        # positions served from the device cache
-    saved_bytes: int = 0     # transfer bytes avoided by cache hits
+    saved_bytes: int = 0     # transfer bytes avoided by LOCAL cache hits
     dedup_saved_bytes: int = 0  # transfer bytes avoided by deduplication
     padding_bytes: int = 0   # share of `bytes` that is shape-bucket padding
+    peer_rows: int = 0       # unique rows pulled from peer shards
+    peer_saved_bytes: int = 0   # transfer bytes avoided by peer-shard hits
+    union_saved_bytes: int = 0  # transfer bytes avoided by the cross-trainer
+                             #   union gather (each shared row ships once)
+    ici_bytes: int = 0       # bytes on the accelerator interconnect of a
+                             #   node with one card per trainer (peer row
+                             #   hops + multicast fan-out copies): a model
     recent_rows: int = 0     # unique rows skipped: still device-resident
                              #   from a recent batch (cross-iteration LRU)
     recent_saved_bytes: int = 0  # transfer bytes those skips avoided
@@ -112,6 +129,16 @@ class MissBlock:
         return self.lookup.num_rows
 
 
+@dataclasses.dataclass
+class ShardMissBlock(MissBlock):
+    """One trainer's block of a sharded-plane ``load_union``: ``rows`` holds
+    only its slice of the union gather (its fresh host misses), ``lookup``
+    indexes the local shard block and the combined ``[peer rows | fresh
+    rows]`` source, and ``shard`` carries the peer requests and per-shard
+    version pins the transfer stage resolves."""
+    shard: Optional[ShardLookup] = None
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -126,7 +153,8 @@ def _nbytes(t: torch.Tensor) -> int:
 class FeatureLoader:
     def __init__(self, dataset: GraphDataset, transfer_dtype: str = "float32",
                  num_threads: int = 1,
-                 cache: Optional[FeatureCache] = None,
+                 cache: Optional[Union[FeatureCache,
+                                       ShardedFeatureCache]] = None,
                  dedup: bool = True, recent_batches: int = 0):
         self.dataset = dataset
         self.source = dataset.feature_source
@@ -338,3 +366,71 @@ class FeatureLoader:
                 dq.append(shipped)
         return MissBlock(rows=rows, lookup=look, recent=recent_src,
                          shipped=shipped)
+
+    def load_union(self, batches: Dict[str, MiniBatch],
+                   ordinals: Dict[str, int],
+                   pin: bool = False) -> Dict[str, ShardMissBlock]:
+        """Sharded-plane load: ONE host gather for the union of every
+        accelerator trainer's fresh-miss set.
+
+        Needs a ``ShardedFeatureCache``.  All frontiers are classified in
+        one ``lookup_union`` (local / peer / fresh per trainer, every shard
+        pinned once per trainer when ``pin``), the union of the fresh sets
+        is gathered once, and each trainer's block gets only its slice.
+
+        The accounting models the physical route of a node with one card
+        per trainer: a union row crosses PCIe once (``bytes``); its copies
+        for the other trainers sharing it, and the peer-shard row hops, ride
+        the accelerator interconnect (``ici_bytes``).  ``union_saved_bytes``
+        is the PCIe traffic avoided against independent per-trainer dedup
+        gathers.  Per-shard stats and hotness are recorded only after the
+        gather succeeded, as in ``load_compact``."""
+        cache = self.cache
+        if not isinstance(cache, ShardedFeatureCache):
+            raise RuntimeError("load_union requires a ShardedFeatureCache")
+        t0 = time.perf_counter()
+        frontiers = {name: self._frontier(b) for name, b in batches.items()}
+        union = cache.lookup_union(frontiers, ordinals, pin=pin,
+                                   record=False)
+        fresh_sets = [sl.look.miss_ids
+                      for sl in union.per_trainer.values()
+                      if sl.look.miss_ids.shape[0]]
+        if fresh_sets:
+            union_ids = np.unique(np.concatenate(fresh_sets))
+        else:
+            union_ids = np.zeros(0, dtype=np.int64)
+        rows = to_transfer_dtype(self._gather(union_ids), self.transfer_dtype)
+        dt = time.perf_counter() - t0
+        cache.record_union(union)
+        row_bytes = cache.row_bytes
+        out: Dict[str, ShardMissBlock] = {}
+        tot_pos = tot_uniq = tot_local = 0
+        tot_peer_pos = tot_peer_rows = tot_fresh = dup_pos = 0
+        for name in sorted(union.per_trainer):
+            sl = union.per_trainer[name]
+            look = sl.look
+            # the trainer's multicast slice: the union rows are sorted by id
+            # and miss_ids is a sorted subset, so searchsorted is exact
+            idx = np.searchsorted(union_ids, look.miss_ids)
+            out[name] = ShardMissBlock(rows=rows[torch.from_numpy(idx)],
+                                       lookup=look, shard=sl)
+            tot_pos += look.num_rows
+            tot_uniq += look.num_unique
+            tot_local += look.num_hit
+            tot_peer_pos += sl.peer_positions
+            tot_peer_rows += sl.peer_rows
+            tot_fresh += look.num_miss
+            dup_pos += (look.miss_positions - sl.peer_positions
+                        - look.num_miss)
+        multicast_extra = tot_fresh - int(union_ids.shape[0])
+        self._account("stats", LoadStats(
+            rows=int(union_ids.shape[0]), bytes=_nbytes(rows), seconds=dt,
+            total_rows=tot_pos, unique_rows=tot_uniq,
+            hit_rows=tot_local + tot_peer_pos,
+            saved_bytes=tot_local * row_bytes,
+            dedup_saved_bytes=dup_pos * row_bytes,
+            peer_rows=tot_peer_rows,
+            peer_saved_bytes=tot_peer_pos * row_bytes,
+            union_saved_bytes=multicast_extra * row_bytes,
+            ici_bytes=(tot_peer_rows + multicast_extra) * row_bytes))
+        return out

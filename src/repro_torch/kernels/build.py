@@ -39,6 +39,14 @@ _KERNELS: Dict[str, Tuple[str, Dict[str, Tuple[object, List[object]]]]] = {
     "cache_combine": ("cache_combine.cu", {
         "cache_combine_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I64, _P]),
         "cache_combine_bf16": (_I, [_P, _P, _P, _P, _P, _I64, _I64, _P]),
+        "cache_combine_pipelined_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I64,
+                                             _I, _P]),
+        "cache_combine_pipelined_bf16": (_I, [_P, _P, _P, _P, _P, _I64,
+                                              _I64, _I, _P]),
+        "cache_combine_legacy_f32": (_I, [_P, _P, _P, _P, _P, _I64, _I64,
+                                          _P]),
+        "cache_combine_legacy_bf16": (_I, [_P, _P, _P, _P, _P, _I64, _I64,
+                                           _P]),
         "cache_combine_error_string": (ctypes.c_char_p, [_I]),
     }),
     "cache_update": ("cache_update.cu", {

@@ -104,23 +104,6 @@ scatter_rows_pipelined_kernel(V* __restrict__ out, const V* __restrict__ rows,
   }
 }
 
-// Call f with a value of the copy-unit type of `unit` bytes.
-template <typename F>
-cudaError_t with_unit(int64_t unit, F&& f) {
-  switch (unit) {
-    case 16:
-      return f(uint4{});
-    case 8:
-      return f(uint2{});
-    case 4:
-      return f(0u);
-    case 2:
-      return f(static_cast<unsigned short>(0));
-    default:
-      return f(static_cast<unsigned char>(0));
-  }
-}
-
 template <typename V>
 cudaError_t launch(void* out, const void* rows, const int32_t* slots,
                    int64_t m, int64_t row_bytes, cudaStream_t stream) {
@@ -147,14 +130,9 @@ cudaError_t launch_pipelined(void* out, const void* rows,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  int device = 0;
-  int sms = 0;
-  err = cudaGetDevice(&device);
+  int64_t grid = 0;
+  err = persistent_grid(n_blocks, kMaxBlocksPerSm, &grid);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int64_t cap = static_cast<int64_t>(sms) * kMaxBlocksPerSm;
-  const int64_t grid = n_blocks < cap ? n_blocks : cap;
   kernel<<<static_cast<unsigned>(grid), kRowBlock * 32,
            static_cast<size_t>(smem), stream>>>(
       static_cast<V*>(out), static_cast<const V*>(rows), slots, m, n_blocks,

@@ -36,6 +36,39 @@ static inline int64_t copy_unit(int64_t row_bytes, const void* a,
   return 1;
 }
 
+// Call f with a value of the copy-unit type of `unit` bytes (a copy_unit
+// result), so one generic launcher serves every unit width.
+template <typename F>
+cudaError_t with_unit(int64_t unit, F&& f) {
+  switch (unit) {
+    case 16:
+      return f(uint4{});
+    case 8:
+      return f(uint2{});
+    case 4:
+      return f(0u);
+    case 2:
+      return f(static_cast<unsigned short>(0));
+    default:
+      return f(static_cast<unsigned char>(0));
+  }
+}
+
+// Grid of a persistent kernel (K4, K6): at most `per_sm` blocks on each SM
+// of the current device, and no more blocks than there are work items.
+static inline cudaError_t persistent_grid(int64_t work, int per_sm,
+                                          int64_t* grid) {
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t cap = static_cast<int64_t>(sms) * per_sm;
+  *grid = work < cap ? work : cap;
+  return cudaSuccess;
+}
+
 // f32 <-> storage-type conversions used by the reductions
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

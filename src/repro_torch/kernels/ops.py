@@ -1,10 +1,10 @@
 """Device-dispatching wrappers around the port's Hopper kernels.
 
-Port of ``repro/kernels/ops.py`` (the combine, the refresh scatter, the
-segment sum and the fused layer).  The tensor's device decides the path:
-a CUDA tensor launches the hand-written kernel (``csrc/*.cu``, built on
-first use by ``build.py``) or raises; a CPU tensor runs the plain PyTorch
-version in ``ref.py``.  There is
+Port of ``repro/kernels/ops.py`` (the combine and its sharded-plane uses,
+the refresh scatter, the segment sum and the fused layer).  The tensor's
+device decides the path: a CUDA tensor launches the hand-written kernel
+(``csrc/*.cu``, built on first use by ``build.py``) or raises; a CPU tensor
+runs the plain PyTorch version in ``ref.py``.  There is
 no fallback from a failed build or launch to the plain version.
 
 Each launch adds one to its kernel's counter (``kernel_launches()``), so a
@@ -16,7 +16,8 @@ analytic VJPs of the reference (``repro/kernels/ops.py:343-357`` and
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Union
+from contextlib import nullcontext
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -24,16 +25,20 @@ import torch
 from . import ref
 from .build import library
 
-__all__ = ["assemble_features", "update_cache_rows", "scatter_rows_",
+__all__ = ["assemble_features", "assemble_features_sharded", "gather_rows",
+           "cache_combine_legacy", "update_cache_rows", "scatter_rows_",
            "segment_weighted_sum_regular", "fused_gnn_update",
            "kernel_launches", "reset_kernel_launches", "KERNELS",
-           "UPDATE_ROW_BLOCK", "MAX_RING_BYTES"]
+           "COMBINE_ROW_BLOCK", "UPDATE_ROW_BLOCK", "MAX_RING_BYTES"]
 
 # kernel name -> the wrapper's counter; bumped only where a kernel launches
-KERNELS = ("cache_combine", "cache_update", "cache_update_pipelined",
-           "fused_update", "segment_sum")
+KERNELS = ("cache_combine", "cache_combine_pipelined", "cache_combine_legacy",
+           "cache_update", "cache_update_pipelined", "fused_update",
+           "segment_sum")
 # kernel -> the library (csrc source) that holds it, where the names differ
-_LIBRARY = {"cache_update_pipelined": "cache_update"}
+_LIBRARY = {"cache_combine_pipelined": "cache_combine",
+            "cache_combine_legacy": "cache_combine",
+            "cache_update_pipelined": "cache_update"}
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()   # trainer threads launch concurrently
 
@@ -50,12 +55,17 @@ def reset_kernel_launches() -> None:
             _launches[k] = 0
 
 
-def _launch(kernel: str, symbol: str, *args) -> None:
-    """Call one C entry point on the current stream and count the launch;
-    a non-zero ``cudaGetLastError`` raises."""
+def _launch(kernel: str, symbol: str, on: torch.Tensor, *args) -> None:
+    """Call one C entry point on ``on``'s device and that device's current
+    stream (appended to ``args``) and count the launch; a non-zero
+    ``cudaGetLastError`` raises.  The device guard matters where a caller's
+    current device is another card (a peer gather under the reader's
+    transfer stream): a kernel launches on the current device, and CUDA
+    refuses a stream of another one."""
     name = _LIBRARY.get(kernel, kernel)
     lib = library(name)
-    rc = getattr(lib, symbol)(*args)
+    with torch.cuda.device(on.device) if on.is_cuda else nullcontext():
+        rc = getattr(lib, symbol)(*args, _stream(on))
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc)
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} "
@@ -94,23 +104,47 @@ def _index(x: Union[np.ndarray, torch.Tensor],
     return t.to(device=device, dtype=torch.int32).contiguous()
 
 
-# ------------------------------------------------------------------ combine
+def _depth(pipeline_depth: int) -> int:
+    depth = int(pipeline_depth)
+    if not 1 <= depth <= 4:
+        raise ValueError(f"pipeline depth must be in 1..4, got {depth}")
+    return depth
 
-_COMBINE_SYMBOL = {torch.float32: "cache_combine_f32",
-                   torch.bfloat16: "cache_combine_bf16"}
+
+def _check_ring(kernel: str, depth: int, rows: int, f: int,
+                elem: int) -> None:
+    ring = depth * rows * f * elem
+    if ring > MAX_RING_BYTES:
+        raise ValueError(f"{kernel} ring of {ring} bytes (depth {depth}, "
+                         f"{rows} rows of {f}) exceeds the {MAX_RING_BYTES} "
+                         f"bytes of shared memory a block may use")
+
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+COMBINE_ROW_BLOCK = 8        # output rows per staged block of K4
+UPDATE_ROW_BLOCK = 8         # rows per staged block of K6
+MAX_RING_BYTES = 232_448     # shared memory one block may use on Hopper
+
+
+# ------------------------------------------------------------------ combine
 
 
 def assemble_features(cache: Optional[torch.Tensor], miss: torch.Tensor,
-                      slots, miss_index) -> torch.Tensor:
+                      slots, miss_index,
+                      pipeline_depth: int = 1) -> torch.Tensor:
     """Assemble the positional layer-0 block from the device-resident hot
     cache and the shipped unique-miss rows: ``out[i] = cache[slots[i]]``
     when ``slots[i] >= 0`` else ``miss[miss_index[i]]`` (the paper's
     Feature Duplicator, on the device after the interconnect).
 
-    ``cache=None`` is the cache-less dedup path (every slot is -1).  The
-    index tables may be host numpy or tensors; they are moved to the miss
-    block's device as int32.  No gradient: layer-0 inputs are data.
+    ``cache=None`` is the cache-less dedup path (every slot is -1); ``miss``
+    may be empty when every slot hits.  The index tables may be host numpy
+    or tensors; they are moved to the miss block's device as int32.  A CUDA
+    block launches K1 at ``pipeline_depth`` 1 and K4 (the same function
+    through a copy ring) at 2..4; every depth gives the same bits.  No
+    gradient: layer-0 inputs are data.
     """
+    depth = _depth(pipeline_depth)
     slots = _index(slots, miss.device)
     miss_index = _index(miss_index, miss.device)
     if _on_cpu(miss):
@@ -118,28 +152,88 @@ def assemble_features(cache: Optional[torch.Tensor], miss: torch.Tensor,
     if cache is not None and (cache.dtype != miss.dtype
                               or cache.shape[1] != miss.shape[1]):
         raise ValueError("cache and miss blocks differ in dtype or width")
-    symbol = _COMBINE_SYMBOL.get(miss.dtype)
-    if symbol is None:
+    suffix = _SUFFIX.get(miss.dtype)
+    if suffix is None:
         raise TypeError(f"cache combine: unsupported dtype {miss.dtype}")
     _check_tensors("assemble_features", cache, miss, slots, miss_index)
     n, f = int(slots.shape[0]), int(miss.shape[1])
     out = torch.empty((n, f), dtype=miss.dtype, device=miss.device)
     if n == 0:
         return out
-    _launch("cache_combine", symbol,
-            cache.data_ptr() if cache is not None else None,
+    ptrs = (cache.data_ptr() if cache is not None else None,
             miss.data_ptr() if miss.shape[0] else None,
-            slots.data_ptr(), miss_index.data_ptr(), out.data_ptr(),
-            n, f, _stream(miss))
+            slots.data_ptr(), miss_index.data_ptr(), out.data_ptr(), n, f)
+    if depth == 1:
+        _launch("cache_combine", f"cache_combine_{suffix}", miss, *ptrs)
+    else:
+        _check_ring("K4", depth, COMBINE_ROW_BLOCK, f, miss.element_size())
+        _launch("cache_combine_pipelined", f"cache_combine_pipelined_{suffix}",
+                miss, *ptrs, depth)
+    return out
+
+
+def gather_rows(block: torch.Tensor, slots,
+                pipeline_depth: int = 1) -> torch.Tensor:
+    """``block[slots]``: the peer-serve half of the sharded plane's row
+    exchange (the owner shard reads the requested rows before the hop).
+    A combine whose every slot hits and whose miss block is empty, so K1 or
+    K4 serves it on a card, bit-equal at every depth."""
+    slots = _index(slots, block.device)
+    return assemble_features(block, block.new_empty((0, block.shape[1])),
+                             slots, torch.zeros_like(slots), pipeline_depth)
+
+
+def assemble_features_sharded(cache: Optional[torch.Tensor],
+                              sources: Sequence[torch.Tensor], slots,
+                              miss_index,
+                              pipeline_depth: int = 1) -> torch.Tensor:
+    """Shard-aware combine: ``cache`` is the trainer's LOCAL shard block and
+    the miss source arrives as an ordered list of device blocks, the rows
+    pulled from peer shards (ring order) then the fresh host-shipped rows.
+    They are concatenated on the device into the one combined source that
+    the union lookup's ``miss_index`` addresses, then combined as in
+    ``assemble_features``."""
+    sources = [s for s in sources if int(s.shape[0])]
+    if not sources:
+        if cache is None:
+            raise ValueError("assemble_features_sharded: no source rows")
+        miss = cache.new_empty((0, cache.shape[1]))
+    elif len(sources) == 1:
+        miss = sources[0]
+    else:
+        miss = torch.cat(sources)
+    return assemble_features(cache, miss, slots, miss_index, pipeline_depth)
+
+
+def cache_combine_legacy(cache: torch.Tensor, miss: torch.Tensor, sel,
+                         row) -> torch.Tensor:
+    """The legacy combine, kept as a parity baseline (no path of the
+    trainer runs it): ``out[i] = cache[row[i]]`` when ``sel[i] == 0`` else
+    ``miss[row[i]]``.  cache [K, F] and miss [M, F] with K, M >= 1; sel /
+    row int [N].  A CUDA block launches K7."""
+    sel = _index(sel, cache.device)
+    row = _index(row, cache.device)
+    if _on_cpu(cache):
+        return ref.cache_combine_legacy(cache, miss, sel, row)
+    suffix = _SUFFIX.get(cache.dtype)
+    if suffix is None or miss.dtype != cache.dtype:
+        raise TypeError(f"legacy combine: unsupported dtypes {cache.dtype}, "
+                        f"{miss.dtype}")
+    if miss.shape[1] != cache.shape[1] or not (cache.shape[0]
+                                               and miss.shape[0]):
+        raise ValueError("legacy combine: non-empty cache and miss blocks "
+                         "of one width expected")
+    _check_tensors("cache_combine_legacy", cache, miss, sel, row)
+    n, f = int(sel.shape[0]), int(cache.shape[1])
+    out = torch.empty((n, f), dtype=cache.dtype, device=cache.device)
+    if n:
+        _launch("cache_combine_legacy", f"cache_combine_legacy_{suffix}",
+                cache, cache.data_ptr(), miss.data_ptr(), sel.data_ptr(),
+                row.data_ptr(), out.data_ptr(), n, f)
     return out
 
 
 # ---------------------------------------------------- refresh scatter (K5/K6)
-
-_UPDATE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-UPDATE_ROW_BLOCK = 8         # rows per staged block of K6
-MAX_RING_BYTES = 232_448     # shared memory one block may use on Hopper
-
 
 def update_cache_rows(cache: torch.Tensor, rows: torch.Tensor, slots,
                       pipeline_depth: int = 1) -> torch.Tensor:
@@ -189,14 +283,12 @@ def scatter_rows_(out: torch.Tensor, rows: torch.Tensor,
     more rows than ``slots`` (K6's padding, never written).  A CPU tensor
     takes the plain indexed copy; a CUDA tensor launches K5 at depth 1 and
     K6 at depth 2..4, or raises."""
-    depth = int(pipeline_depth)
-    if not 1 <= depth <= 4:
-        raise ValueError(f"pipeline depth must be in 1..4, got {depth}")
+    depth = _depth(pipeline_depth)
     m = int(slots.shape[0])
     if _on_cpu(out):
         out[slots.long()] = rows[:m].to(out.dtype)
         return
-    suffix = _UPDATE_SUFFIX.get(out.dtype)
+    suffix = _SUFFIX.get(out.dtype)
     if suffix is None or rows.dtype != out.dtype:
         raise TypeError(f"cache update: unsupported dtypes {out.dtype}, "
                         f"{rows.dtype}")
@@ -209,22 +301,17 @@ def scatter_rows_(out: torch.Tensor, rows: torch.Tensor,
         return
     f = int(out.shape[1])
     if depth == 1:
-        _launch("cache_update", f"cache_update_{suffix}", out.data_ptr(),
-                rows.data_ptr(), slots.data_ptr(), m, f, _stream(out))
+        _launch("cache_update", f"cache_update_{suffix}", out,
+                out.data_ptr(), rows.data_ptr(), slots.data_ptr(), m, f)
         return
     mp = int(rows.shape[0])
     if mp % UPDATE_ROW_BLOCK:
         raise ValueError(f"K6 takes rows padded to a multiple of "
                          f"{UPDATE_ROW_BLOCK}, got {mp}")
-    ring = depth * UPDATE_ROW_BLOCK * f * out.element_size()
-    if ring > MAX_RING_BYTES:
-        raise ValueError(f"K6 ring of {ring} bytes (depth {depth}, "
-                         f"{UPDATE_ROW_BLOCK} rows of {f}) exceeds the "
-                         f"{MAX_RING_BYTES} bytes of shared memory a block "
-                         f"may use")
+    _check_ring("K6", depth, UPDATE_ROW_BLOCK, f, out.element_size())
     _launch("cache_update_pipelined", f"cache_update_pipelined_{suffix}",
-            out.data_ptr(), rows.data_ptr(), slots.data_ptr(), m, mp, f,
-            depth, _stream(out))
+            out, out.data_ptr(), rows.data_ptr(), slots.data_ptr(), m, mp, f,
+            depth)
 
 
 # -------------------------------------------------------------- segment sum
@@ -245,8 +332,8 @@ def _segsum_forward(x_nbr: torch.Tensor, w_edge: torch.Tensor,
     _check_tensors("segment_weighted_sum_regular", x_nbr, w_edge)
     d, f = x_nbr.shape[0] // fanout, int(x_nbr.shape[1])
     out = torch.empty((d, f), dtype=x_nbr.dtype, device=x_nbr.device)
-    _launch("segment_sum", symbol, x_nbr.data_ptr(), w_edge.data_ptr(),
-            out.data_ptr(), d, f, int(fanout), _stream(x_nbr))
+    _launch("segment_sum", symbol, x_nbr, x_nbr.data_ptr(),
+            w_edge.data_ptr(), out.data_ptr(), d, f, int(fanout))
     return out
 
 
@@ -301,11 +388,11 @@ def _fused_forward(x_self, x_nbr, w_edge, self_scale, w_self, w_agg, bias,
             or w_self.shape[0] != f:
         raise ValueError("fused GNN layer: inconsistent shapes")
     out = torch.empty((d, o), dtype=torch.float32, device=x_self.device)
-    _launch("fused_update", "fused_update_f32",
+    _launch("fused_update", "fused_update_f32", x_self,
             x_self.data_ptr(), x_nbr.data_ptr(), w_edge.data_ptr(),
             self_scale.data_ptr(), w_self.data_ptr(), w_agg.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            d, f, o, int(fanout), _stream(x_self))
+            d, f, o, int(fanout))
     return out
 
 

@@ -8,7 +8,10 @@ kernels in ``csrc/`` compute, written as ordinary torch ops: the wrappers in
 * ``assemble_features`` — the cache combine (Feature Duplicator):
   ``out[i] = cache[slots[i]]`` if ``slots[i] >= 0`` else
   ``miss[miss_index[i]]``; a pure data movement, so kernel and plain
-  version agree bit for bit.
+  version agree bit for bit.  K1 and its multi-buffered twin K4 both
+  compute it, and so does the peer gather (``ops.gather_rows``).
+* ``cache_combine_legacy`` — the legacy combine (K7): ``out[i] =
+  cache[row[i]]`` if ``sel[i] == 0`` else ``miss[row[i]]``; bitwise.
 * ``cache_update`` — the refresh scatter: ``out = cache;
   out[slots[i]] = rows[i]``, updates applied in index order so an aliased
   slot keeps its last writer; bitwise, like the combine.
@@ -23,7 +26,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["assemble_features", "expand_rows", "cache_update",
+__all__ = ["assemble_features", "expand_rows", "cache_combine_legacy",
+           "cache_update",
            "segment_weighted_sum_regular", "fused_gnn_update"]
 
 
@@ -53,6 +57,22 @@ def expand_rows(rows: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
     """Dedup expansion: ``out[i] = rows[inverse[i]]`` (the cache-less
     combine)."""
     return rows[inverse.long()]
+
+
+def cache_combine_legacy(cache: torch.Tensor, miss: torch.Tensor,
+                         sel: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """Legacy combine: ``out[i] = cache[row[i]]`` when ``sel[i] == 0`` else
+    ``miss[row[i]]``.  As in the reference's kernel both sources are read
+    (row 0 of the source not taken) and one is selected.
+
+    cache: [K, F], miss: [M, F] (K, M >= 1); sel/row: int [N] -> [N, F].
+    """
+    take_cache = sel == 0
+    row = row.long()
+    zero = torch.zeros_like(row)
+    from_cache = cache[torch.where(take_cache, row, zero)]
+    from_miss = miss[torch.where(take_cache, zero, row)]
+    return torch.where(take_cache[:, None], from_cache, from_miss)
 
 
 def cache_update(cache: torch.Tensor, rows: torch.Tensor,

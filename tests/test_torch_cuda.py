@@ -6,10 +6,12 @@ On the card, run this file alone:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
+The two ``two_cards`` cases need a second card, where a peer row
+crosses from its owner's card to the reader's; with one card they skip.
 It imports neither JAX nor the reference package, which the card's
 machine does not have.  Each kernel is held against its plain version on
-the same inputs: the combine and the refresh scatter (K5, K6) bit-equal,
-the segment sum rtol=atol=1e-5 in
+the same inputs: the combines (K1, K4 at every depth, K7) and the refresh
+scatter (K5, K6) bit-equal, the segment sum rtol=atol=1e-5 in
 f32 (1e-2 in bf16: one rounding of the sum), the fused layer and every
 gradient rtol=atol=1e-4 (fp32 sums in another order than cuBLAS).
 """
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.core import HybridConfig, HybridGNNTrainer
+from repro_torch.dist import peer_gather_rows
 from repro_torch.graph import GNNConfig, make_dataset
 from repro_torch.kernels import ops, ref
 
@@ -31,6 +34,13 @@ def cuda():
                     "interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the peer hop crosses cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
 
 
 def _randn(gen, *shape, device):
@@ -56,6 +66,104 @@ def test_combine_bit_equal(cuda, dtype, f):
     assert torch.equal(got, ref.assemble_features(cache, miss, slots, mi))
     got = ops.assemble_features(None, miss, torch.full_like(mi, -1), mi)
     assert torch.equal(got, ref.expand_rows(miss, mi))
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else \
+        t.view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [100, 7])
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_pipelined_combine_bit_equal_to_k1(cuda, dtype, f, depth):
+    """K4 against K1 and the plain version, bit for bit, with -0.0, a
+    denormal and a NaN payload in the sources and a ragged last block;
+    also with no cache and with an empty miss block."""
+    rng = np.random.default_rng(depth * 7 + f)
+    k, m, n = 700, 300, 5003
+    cache = torch.from_numpy(rng.standard_normal((k, f)).astype(
+        np.float32)).to(dtype)
+    miss = torch.from_numpy(rng.standard_normal((m, f)).astype(
+        np.float32)).to(dtype)
+    special = torch.tensor([-0.0, 1e-40, float("nan")])[:f].to(dtype)
+    cache[:5, :special.numel()] = special
+    miss[:5, :special.numel()] = special
+    cache, miss = cache.to(cuda), miss.to(cuda)
+    slots = rng.integers(-1, k, n).astype(np.int32)
+    slots[:20] = np.arange(20) % 5 - 1
+    mi = np.where(slots < 0, rng.integers(0, m, n), 0).astype(np.int32)
+    mi[:20] = np.arange(20) % 5
+    all_miss = rng.integers(0, m, n).astype(np.int32)
+    for c, mm, sl, mx in ((cache, miss, slots, mi),
+                          (None, miss, np.full(n, -1, np.int32), all_miss),
+                          (cache, miss[:0], np.abs(slots),
+                           np.zeros(n, np.int32))):
+        k1 = ops.assemble_features(c, mm, sl, mx, 1)
+        n0 = ops.kernel_launches()["cache_combine_pipelined"]
+        k4 = ops.assemble_features(c, mm, sl, mx, depth)
+        torch.cuda.synchronize()
+        assert ops.kernel_launches()["cache_combine_pipelined"] == n0 + 1
+        want = ref.assemble_features(c, mm, torch.from_numpy(sl).to(cuda),
+                                     torch.from_numpy(mx).to(cuda))
+        assert torch.equal(_bits(k4), _bits(k1))
+        assert torch.equal(_bits(k4), _bits(want))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_gather_rows_on_card(cuda, depth):
+    rng = np.random.default_rng(depth)
+    block = torch.from_numpy(rng.standard_normal((5000, 100)).astype(
+        np.float32)).to(cuda)
+    slots = rng.integers(0, 5000, 3001).astype(np.int32)
+    kernel = "cache_combine" if depth == 1 else "cache_combine_pipelined"
+    n0 = ops.kernel_launches()[kernel]
+    got = ops.gather_rows(block, slots, depth)
+    assert ops.kernel_launches()[kernel] == n0 + 1
+    assert torch.equal(got, block[torch.from_numpy(slots).long().to(cuda)])
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_peer_gather_across_cards(two_cards, depth):
+    """A peer gather issued under the reader's transfer stream on card 0
+    reads a block owned by card 1: the kernel runs on card 1 and only the
+    gathered rows hop to card 0."""
+    reader, owner = two_cards
+    rng = np.random.default_rng(depth)
+    block = torch.from_numpy(rng.standard_normal((5000, 100)).astype(
+        np.float32)).to(owner)
+    slots = rng.integers(0, 5000, 3001).astype(np.int32)
+    kernel = "cache_combine" if depth == 1 else "cache_combine_pipelined"
+    n0 = ops.kernel_launches()[kernel]
+    stream = torch.cuda.Stream(reader)
+    with torch.cuda.stream(stream):
+        got = peer_gather_rows(block, slots, reader, depth)
+    stream.synchronize()
+    assert ops.kernel_launches()[kernel] == n0 + 1
+    assert got.device == reader
+    assert torch.equal(got.cpu(),
+                       block[torch.from_numpy(slots).long().to(owner)].cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [100, 7])
+def test_legacy_combine_bit_equal(cuda, dtype, f):
+    rng = np.random.default_rng(f + 1)
+    k, m, n = 700, 300, 5000
+    cache = torch.from_numpy(rng.standard_normal((k, f)).astype(
+        np.float32)).to(cuda, dtype)
+    miss = torch.from_numpy(rng.standard_normal((m, f)).astype(
+        np.float32)).to(cuda, dtype)
+    sel = rng.integers(0, 2, n).astype(np.int32)
+    row = np.where(sel == 0, rng.integers(0, k, n),
+                   rng.integers(0, m, n)).astype(np.int32)
+    n0 = ops.kernel_launches()["cache_combine_legacy"]
+    got = ops.cache_combine_legacy(cache, miss, sel, row)
+    assert ops.kernel_launches()["cache_combine_legacy"] == n0 + 1
+    want = ref.cache_combine_legacy(cache, miss,
+                                    torch.from_numpy(sel).to(cuda),
+                                    torch.from_numpy(row).to(cuda))
+    assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -160,6 +268,70 @@ def test_refresh_on_card_bit_identical_and_launches_k5(cuda):
     assert runs[True][3] > 0 and runs[False][3] == 0
     assert runs[True][1]["cache_update"] >= 1
     assert runs[False][1]["cache_update"] == 0
+
+
+def test_sharded_plane_on_card_bit_identical_and_launches_k4(cuda):
+    """Accel-only training at n_accel=4 (all on one card) with the sharded
+    plane and kernel_pipeline_depth=2 gives the replicated run's losses bit
+    for bit, and every combine and peer gather went through K4."""
+    ds = make_dataset("ogbn-products", scale=0.01, seed=0)
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5))
+    runs = {}
+    for sharding in ("replicated", "sharded"):
+        cfg = HybridConfig(total_batch=512, n_accel=4, hybrid=False,
+                           use_drm=False, tfp_depth=2, cache_fraction=0.1,
+                           cache_sharding=sharding, kernel_pipeline_depth=2,
+                           accel_platform="rtx-a5000")
+        tr = HybridGNNTrainer(ds, g, cfg)
+        if sharding == "sharded":
+            tr.set_params(runs["replicated"][2])
+        params0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        ops.reset_kernel_launches()
+        hist = tr.train(4)
+        tr.close()
+        runs[sharding] = ([m.loss for m in hist], ops.kernel_launches(),
+                          params0, tr.feature_traffic())
+    assert runs["sharded"][0] == runs["replicated"][0]
+    for sharding in runs:
+        launches = runs[sharding][1]
+        assert launches["cache_combine"] == 0
+        assert launches["cache_combine_pipelined"] >= 4 * 4
+    assert runs["sharded"][3]["peer_rows"] > 0
+    assert runs["sharded"][1]["cache_combine_pipelined"] > \
+        runs["replicated"][1]["cache_combine_pipelined"]
+
+
+def test_sharded_plane_across_cards_bit_identical(two_cards):
+    """At n_accel=2 on two cards, with the cache refreshing on every
+    boundary, the sharded plane (peer rows gathered on the owner's card,
+    shards refreshed through K6 on their own cards) gives the replicated
+    run's losses bit for bit."""
+    ds = make_dataset("ogbn-products", scale=0.01, seed=0)
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5))
+    runs = {}
+    for sharding in ("replicated", "sharded"):
+        cfg = HybridConfig(total_batch=512, n_accel=2, hybrid=False,
+                           use_drm=False, tfp_depth=2, cache_fraction=0.1,
+                           cache_sharding=sharding, kernel_pipeline_depth=2,
+                           cache_refresh=True, cache_drift_threshold=0.0,
+                           accel_platform="rtx-a5000")
+        tr = HybridGNNTrainer(ds, g, cfg)
+        assert {tr._accel_device(f"accel{i}").index for i in (0, 1)} == \
+            {0, 1}
+        if sharding == "sharded":
+            tr.set_params(runs["replicated"][2])
+        params0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        ops.reset_kernel_launches()
+        hist = tr.train(4)
+        tr.close()
+        runs[sharding] = ([m.loss for m in hist], ops.kernel_launches(),
+                          params0, tr.feature_traffic())
+    assert all(math.isfinite(x) for x in runs["sharded"][0])
+    assert runs["sharded"][0] == runs["replicated"][0]
+    assert runs["sharded"][3]["peer_rows"] > 0
+    for sharding in runs:
+        assert runs[sharding][1]["cache_combine_pipelined"] >= 2 * 4
+        assert runs[sharding][1]["cache_update_pipelined"] >= 1
 
 
 @pytest.mark.parametrize("agg_impl", ["kernel_fused", "kernel"])

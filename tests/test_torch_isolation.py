@@ -81,12 +81,10 @@ def test_trainer_default_device_requires_cuda(monkeypatch):
 
 @pytest.mark.parametrize("knob", [
     {"use_accel_sampler": True},
-    {"cache_sharding": "sharded"},
     {"prefetch_windows": 2},
     {"mmap_lru_windows": 4},
     {"auto_tune": True},
     {"compression": "int8"},
-    {"kernel_pipeline_depth": 2},
     {"ckpt_every": 5},
     {"pipeline_watchdog_seconds": 1.0},
 ], ids=lambda k: next(iter(k)))
@@ -100,15 +98,25 @@ def test_out_of_slice_knob_raises(knob):
     {"async_refresh": True},
     {"recent_rows_batches": 2},
     {"cache_refresh": True, "cache_refresh_period": 3},
+    {"cache_sharding": "sharded"},
+    {"cache_sharding": "sharded", "shard_placement": "degree"},
+    {"kernel_pipeline_depth": 2},
+    {"kernel_pipeline_depth": 4, "cache_sharding": "sharded"},
 ], ids=lambda k: "+".join(k))
 def test_dynamic_cache_knob_builds(knob):
     cfg = HybridConfig(**knob)
     assert all(getattr(cfg, k) == v for k, v in knob.items())
 
 
-def test_pipelined_combine_depth_names_k4():
-    with pytest.raises(NotImplementedError, match="K4"):
-        HybridConfig(kernel_pipeline_depth=2)
+@pytest.mark.parametrize("knob", [
+    {"kernel_pipeline_depth": 5},
+    {"kernel_pipeline_depth": 0},
+    {"cache_sharding": "striped"},
+    {"shard_placement": "random"},
+], ids=lambda k: "=".join(map(str, next(iter(k.items())))))
+def test_bad_sharded_plane_knob_rejected(knob):
+    with pytest.raises(ValueError):
+        HybridConfig(**knob)
 
 
 def test_fault_injector_raises():

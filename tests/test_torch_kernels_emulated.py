@@ -8,9 +8,10 @@ becomes a loop over the grid.  The wrappers in ``kernels.ops`` then drive
 these builds through the same ctypes entry points (argument types, pointers,
 shapes) and are held against the plain versions: the combine and the refresh
 scatter bit-equal, the segment sum and the fused layer within rtol=1e-5 /
-1e-4.  The ``cuda_pipeline.h`` primitives of the multi-buffered scatter run
-as synchronous copies and dynamic shared memory as a static buffer, so the
-ring's slot arithmetic is checked but not its overlap.  This checks the
+1e-4.  The ``cuda_pipeline.h`` primitives of the multi-buffered combine and
+scatter (K4, K6) run as synchronous copies and dynamic shared memory as a
+static buffer, so the ring's slot arithmetic is checked but not its
+overlap.  This checks the
 kernels' index math, masking and tile choice; it says nothing about speed
 or about what nvcc accepts, which only the card shows.
 """
@@ -191,6 +192,88 @@ def test_emulated_combine_bit_equal(emulated_ops, dtype, f, case):
     want = ref.assemble_features(cache, miss, torch.from_numpy(slots),
                                  torch.from_numpy(mi))
     assert torch.equal(_bits(got), _bits(want))
+
+
+def _combine_inputs(dtype, f, case, n=203, seed=0):
+    """Cache, miss block and tables with -0.0, a denormal and a NaN payload
+    in the source rows; ``n`` = 203 leaves a ragged last 8-row block."""
+    rng = np.random.default_rng(seed + f)
+    k, m = 40, 13
+    cache = torch.from_numpy(rng.standard_normal((k, f)).astype(
+        np.float32)).to(dtype)
+    miss = torch.from_numpy(rng.standard_normal((m, f)).astype(
+        np.float32)).to(dtype)
+    special = torch.tensor([-0.0, 1e-40, float("nan")])[:f]
+    cache[0, :special.numel()] = special.to(dtype)
+    miss[0, :special.numel()] = special.to(dtype)
+    slots = rng.integers(-1, k, n).astype(np.int32)
+    if case == "no_cache":
+        cache, slots = None, np.full(n, -1, np.int32)
+    if case == "all_hit":
+        slots, miss = rng.integers(0, k, n).astype(np.int32), miss[:0]
+    mi = np.where(slots < 0, rng.integers(0, max(m, 1), n), 0).astype(
+        np.int32)
+    return cache, miss, slots, mi
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [100, 7])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_emulated_pipelined_combine_bit_equal(emulated_ops, dtype, f, depth):
+    """``assemble_features`` at every depth: K1 at depth 1, K4 at 2..4, for
+    f32, bf16 and an odd bf16 width (staged with plain loads), against the
+    plain combine bit for bit, -0.0, denormals and NaN payloads included."""
+    kernel = "cache_combine" if depth == 1 else "cache_combine_pipelined"
+    for case in ("mixed", "no_cache", "all_hit"):
+        cache, miss, slots, mi = _combine_inputs(dtype, f, case)
+        want = ref.assemble_features(cache, miss, torch.from_numpy(slots),
+                                     torch.from_numpy(mi))
+        before = emulated_ops.kernel_launches()
+        got = emulated_ops.assemble_features(cache, miss, slots, mi, depth)
+        after = emulated_ops.kernel_launches()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == kernel) for k in after}, case
+        assert torch.equal(_bits(got), _bits(want)), case
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [100, 7])
+def test_emulated_legacy_combine_bit_equal(emulated_ops, dtype, f):
+    """K7 with the (sel, row) tables against its plain version."""
+    rng = np.random.default_rng(f)
+    cache, miss, _, _ = _combine_inputs(dtype, f, "mixed")
+    n = 150
+    sel = rng.integers(0, 2, n).astype(np.int32)
+    row = np.where(sel == 0, rng.integers(0, cache.shape[0], n),
+                   rng.integers(0, miss.shape[0], n)).astype(np.int32)
+    before = emulated_ops.kernel_launches()["cache_combine_legacy"]
+    got = emulated_ops.cache_combine_legacy(cache, miss, sel, row)
+    assert emulated_ops.kernel_launches()["cache_combine_legacy"] == \
+        before + 1
+    want = ref.cache_combine_legacy(cache, miss, torch.from_numpy(sel),
+                                    torch.from_numpy(row))
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_emulated_gather_rows_and_ring_budget(emulated_ops):
+    block = torch.randn(30, 12)
+    slots = np.array([3, 0, 29, 3, 7], np.int32)
+    for depth in (1, 2, 4):
+        assert torch.equal(emulated_ops.gather_rows(block, slots, depth),
+                           block[torch.from_numpy(slots).long()])
+    wide = torch.zeros(16, 2000)
+    with pytest.raises(ValueError, match="shared memory"):
+        emulated_ops.gather_rows(wide, slots, 4)
+    with pytest.raises(ValueError, match="1..4"):
+        emulated_ops.gather_rows(block, slots, 5)
+    # K4's entry point takes only depths 2..4 (depth 1 is K1's)
+    out = torch.empty(5, 12)
+    slots_t = torch.from_numpy(slots)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        emulated_ops._launch("cache_combine_pipelined",
+                             "cache_combine_pipelined_f32", block,
+                             block.data_ptr(), None, slots_t.data_ptr(),
+                             slots_t.data_ptr(), out.data_ptr(), 5, 12, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
