@@ -20,7 +20,8 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
                autograd, K5/K6 refresh scatter (depths 1, 2, 4; f32, bf16;
                the slots and rows of a real first commit, plus aliased
                slots: bit-equal to the plain keep-last scatter and to K5),
-               and each kernel's time, plain time, library time and bound
+               and each kernel's time, plain time, library time and bound;
+               K8 flash attention at the serve phase's prefill shape
   train        ~10 iterations of the slice on the card; asserts finite
                losses, an accelerator share on every iteration, CUDA inputs
                and parameters, and K1/K2 launches on every accel iteration
@@ -45,6 +46,21 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
   depth        the slice at kernel_pipeline_depth 2 against depth 1 from the
                same weights, 3 iterations: losses and shares bit-equal, every
                accelerator combine through K4
+  serve        the LM serving path at llama3.2-1b full width and depth (bf16,
+               attn_impl="flash", random weights from a seed): (a) prefill
+               4 x 4096 tokens with make_prefill_step, prefill_into_cache,
+               32 greedy decode steps with make_serve_step (prefill ms,
+               decode ms per token, tok/s, peak device memory); (b) K8 16
+               times per prefill; (c) the same prefill through the blocked
+               plain path: last-position logits and caches within stated
+               bf16 tolerances; (d) 1 x 512 tokens + 4 decode steps on the
+               card against the host from the same weights; (e)
+               repro_torch.launch.serve's main at its defaults on
+               llama3.2-1b (the stepwise route, no K8)
+
+The kernels phase also holds K8 (flash attention) against its plain version
+at the prefill's shape in f32 and bf16 and times it beside
+``scaled_dot_product_attention`` (timed only; the port never calls it).
 
 then the card's name and power limit as nvidia-smi prints them, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -86,11 +102,27 @@ K_SOURCES = {
                      "src/repro/kernels/gather_scatter_mm.py:229"),
     "cache_update_pipelined": ("src/repro_torch/kernels/csrc/cache_update.cu",
                                "src/repro/kernels/gather_scatter_mm.py:493"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:68"),
 }
 K6_DEPTHS = (2, 4)           # K6's line reports depth 2; the phase has both
 K4_DEPTHS = (2, 3, 4)        # K4's line reports depth 2
 SHARD_ACCEL = 4
 STAGES = ("t_sc", "t_load", "t_tran", "t_tc", "t_ta")
+LM_ARCH = "llama3.2-1b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
+HOST_BATCH, HOST_PROMPT, HOST_GEN = 1, 512, 4
+BF16_TFLOPS = 989e12          # H100 SXM dense bf16 tensor cores (datasheet)
+# K8 against its plain version: f32 sums of 64-key tiles in another order
+# (2e-5); bf16, one rounding of an f32 value that may differ in its last
+# bits (1e-2, about one bf16 ulp at |x| <= 2)
+K8_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# Whole bf16 models on two routes (flash vs blocked; card vs host).  The CPU
+# rehearsal (llama3.2-1b widths, 16 layers, vocab cut to 8192, 1 x 512
+# tokens, flash vs blocked) differed by at most 0.078 and on average 0.0127
+# in the last logits (|x| up to 4.1) and 0.080 / 0.0099 in the caches; the
+# bounds leave 3x and 2.4x for the larger batch and prompt.
+BF16_MAX, BF16_MEAN = 0.25, 0.03
 
 
 def emit(phase: str, **fields) -> None:
@@ -358,8 +390,51 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
               flops=fl3_total)
     out["segment_sum"] = k3
     out.update(refresh_scatter(trainer, b, peak_bw, dev))
+    out["flash_attention"] = flash_kernel(dev, peak_bw)
     emit("kernels", b=b, platform=platform, **out)
     return out
+
+
+def flash_kernel(dev, peak_bw: float) -> dict:
+    """K8 at the serve phase's prefill shape (llama3.2-1b: B 4, S 4096, 8
+    KV heads of 4 query heads, D 64) against its plain version in f32 and
+    bf16, and its time, the plain version's and SDPA's in bf16."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    cfg = get_arch(LM_ARCH)
+    b, s, hkv, g, d = (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv,
+                       cfg.n_heads // cfg.n_kv, cfg.hd)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q32 = torch.randn(b, s, hkv, g, d, generator=gen, device=dev)
+    k32 = torch.randn(b, s, hkv, d, generator=gen, device=dev)
+    v32 = torch.randn(b, s, hkv, d, generator=gen, device=dev)
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        got = ops.flash_attention(q, k, v, cfg.q_block)
+        want = ref.flash_attention(q, k, v, cfg.q_block)
+        torch.cuda.synchronize()
+        err[str(dtype)] = close(got, want, K8_TOL[dtype], K8_TOL[dtype],
+                                f"K8 {dtype}")
+        del got, want
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    del q32, k32, v32
+    # SDPA's layout: [B, H, S, D], query head h*G + g on KV head h
+    qt = q.view(b, s, hkv * g, d).transpose(1, 2)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    flops = 2 * b * hkv * g * d * s * s      # causal: half of 4*B*Hq*D*S^2
+    byts = nbytes(q, k, v) + q.numel() * q.element_size()
+    return dict(
+        name="flash_attention", shape=[b, s, hkv, g, d], dtype="bfloat16",
+        max_abs_err=err[str(torch.bfloat16)], max_abs_err_by_dtype=err,
+        ms=time_ms(lambda: ops.flash_attention(q, k, v, cfg.q_block)),
+        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, cfg.q_block)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound_ms=max(byts / peak_bw, flops / BF16_TFLOPS) * 1e3,
+        bound_by=("bytes" if byts / peak_bw >= flops / BF16_TFLOPS
+                  else "operations"), bytes=byts, flops=flops)
 
 
 def pipelined_and_legacy_combine(cache32, miss32, look, dev, k1_bytes,
@@ -778,6 +853,157 @@ def phase_depth(ds, sage, slice_cfg) -> dict:
     return two["launches"]
 
 
+def bf16_close(a: torch.Tensor, b: torch.Tensor, what: str) -> dict:
+    """Two bf16 routes of one model: max and mean absolute difference
+    within BF16_MAX / BF16_MEAN, values finite."""
+    diff = (a.float() - b.float()).abs()
+    res = dict(max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+               max_ref=float(b.float().abs().max()))
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+          f"{what}: shapes {tuple(a.shape)} {tuple(b.shape)} or non-finite")
+    check(res["max_abs"] <= BF16_MAX and res["mean_abs"] <= BF16_MEAN,
+          f"{what}: {res}")
+    return res
+
+
+def greedy(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    return logits[:, -1, :vocab].float().argmax(-1, keepdim=True).int()
+
+
+def phase_serve(dev: torch.device) -> dict:
+    """The LM serving path on the card: prefill with K8, the cache, greedy
+    decode; the blocked route and the host as references; the serve CLI."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import (active_param_count, init_decode_cache,
+                                    init_params, make_prefill_step,
+                                    make_serve_step, param_count,
+                                    prefill_into_cache)
+    cfg = dataclasses.replace(get_arch(LM_ARCH), attn_impl="flash")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    # the products' weights plus 2L + 1 norm vectors (1,498,482,688 for
+    # llama3.2-1b, whose vocab needs no padding)
+    want = active_param_count(cfg) + (2 * cfg.n_layers + 1) * cfg.d_model
+    check(n_params == want, f"{cfg.name}: {n_params} params, not {want}")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)).to(dev)
+    step = make_serve_step(cfg)
+
+    def run(tokens, gen: int):
+        """prefill -> cache -> ``gen`` greedy steps; the prefill's K8
+        launches counted from 0."""
+        b, p = tokens.shape
+        cache = init_decode_cache(cfg, b, p + gen, dev)
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        logits, caches = make_prefill_step(cfg)(model, {"tokens": tokens})
+        prefill_into_cache(*caches["attn_kv"], cache["attn"])
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        k8 = ops.kernel_launches()["flash_attention"]
+        toks, step_logits = [], []
+        lg = logits
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            toks.append(greedy(lg, cfg.vocab))
+            lg, cache = step(model, cache, {"tokens": toks[-1]})
+            step_logits.append(lg)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        return dict(logits=logits, kv=caches["attn_kv"], cache=cache["attn"],
+                    tokens=torch.cat(toks, 1) if toks else None,
+                    step_logits=step_logits, prefill_s=t_prefill,
+                    decode_s=t_decode, k8=k8,
+                    k8_after_decode=ops.kernel_launches()["flash_attention"])
+
+    # (a) + (b): a warm-up, then the main path with the counts from 0
+    run(prompts, 2)                       # warm-up (cuBLAS, K8's first launch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    main_run = run(prompts, SERVE_GEN)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(main_run["k8"] == cfg.n_layers,
+          f"K8 launched {main_run['k8']} times in a {cfg.n_layers}-layer "
+          f"prefill")
+    check(main_run["k8_after_decode"] == main_run["k8"],
+          "decode launched K8 (it attends through the cache)")
+    lg = main_run["logits"]
+    check(lg.shape == (SERVE_BATCH, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(lg).all()), "prefill logits")
+    toks = main_run["tokens"]
+    check(toks.shape == (SERVE_BATCH, SERVE_GEN)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          "decoded tokens")
+    check(main_run["cache"].pos.tolist() == [SERVE_PROMPT + SERVE_GEN]
+          * cfg.n_layers, "cache positions after decode")
+    check(all(bool(torch.isfinite(x).all()) for x in main_run["step_logits"]),
+          "non-finite decode logits")
+    prefill_ms = main_run["prefill_s"] * 1e3
+    decode_ms = main_run["decode_s"] * 1e3 / SERVE_GEN
+    res = dict(arch=cfg.name, params=n_params, init_s=init_s,
+               batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+               prefill_ms=prefill_ms,
+               prefill_tok_s=SERVE_BATCH * SERVE_PROMPT / main_run[
+                   "prefill_s"],
+               decode_ms_per_token=decode_ms,
+               decode_tok_s=SERVE_BATCH * SERVE_GEN / main_run["decode_s"],
+               peak_mem_bytes=peak, k8_launches=main_run["k8"],
+               first_tokens=toks[0, :8].tolist())
+
+    # (c) the blocked plain route on the same weights and prompts
+    blocked_cfg = dataclasses.replace(cfg, attn_impl="blocked")
+    ops.reset_kernel_launches()
+    b_logits, b_caches = make_prefill_step(blocked_cfg)(
+        model, {"tokens": prompts})
+    check(ops.kernel_launches()["flash_attention"] == 0,
+          "the blocked route launched K8")
+    res["vs_blocked"] = dict(
+        logits=bf16_close(lg, b_logits, "flash vs blocked logits"),
+        k=bf16_close(main_run["kv"][0], b_caches["attn_kv"][0],
+                     "flash vs blocked k"),
+        v=bf16_close(main_run["kv"][1], b_caches["attn_kv"][1],
+                     "flash vs blocked v"))
+    del main_run, b_logits, b_caches
+
+    # (d) card vs host from the same weights: 1 x 512 + 4 steps, the host
+    # fed the card's greedy tokens
+    small = prompts[:HOST_BATCH, :HOST_PROMPT].contiguous()
+    card = run(small, HOST_GEN)
+    check(card["k8"] == cfg.n_layers, f"host check: K8 {card['k8']}")
+    cpu = torch.device("cpu")
+    model.to(cpu)
+    t0 = time.perf_counter()
+    h_cache = init_decode_cache(cfg, HOST_BATCH, HOST_PROMPT + HOST_GEN, cpu)
+    h_logits, h_kv = make_prefill_step(cfg)(model, {"tokens": small.cpu()})
+    prefill_into_cache(*h_kv["attn_kv"], h_cache["attn"])
+    host = dict(prefill=bf16_close(card["logits"].cpu(), h_logits,
+                                   "card vs host prefill logits"), steps=[])
+    for i in range(HOST_GEN):
+        lg_h, h_cache = step(model, h_cache,
+                             {"tokens": card["tokens"][:, i:i + 1].cpu()})
+        host["steps"].append(bf16_close(card["step_logits"][i].cpu(), lg_h,
+                                        f"card vs host decode step {i}"))
+    host["host_s"] = time.perf_counter() - t0
+    res["vs_host"] = host
+    del model, card
+
+    # (e) the serve CLI at its defaults on llama3.2-1b (stepwise prefill)
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    cli = serve.main(["--arch", LM_ARCH])
+    check(cli["tokens"].shape == (4, 16), "serve CLI tokens")
+    res["cli"] = dict(prefill_s=cli["prefill_s"], decode_s=cli["decode_s"],
+                      wall_s=time.perf_counter() - t0,
+                      launches=ops.kernel_launches())
+    emit("serve", **res)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -866,6 +1092,7 @@ def main() -> int:
                                      torch.device("cuda", 0))
     shard_launches = phase_shard(ds, sage, slice_cfg)
     phase_depth(ds, sage, slice_cfg)
+    serve_res = phase_serve(torch.device("cuda", 0))
 
     launches = dict(train["launches"])
     launches["segment_sum"] = seg_launches["segment_sum"]
@@ -874,6 +1101,7 @@ def main() -> int:
     # baseline), so the train run's count of it stands
     launches["cache_combine_pipelined"] = \
         shard_launches["cache_combine_pipelined"]
+    launches["flash_attention"] = serve_res["k8_launches"]
     kernels = []
     for name in ops.KERNELS:
         k = kern[name]

@@ -62,6 +62,13 @@ _KERNELS: Dict[str, Tuple[str, Dict[str, Tuple[object, List[object]]]]] = {
         "fused_update_f32": (_I, [_P] * 8 + [_I64, _I64, _I64, _I, _P]),
         "fused_update_error_string": (ctypes.c_char_p, [_I]),
     }),
+    "flash_attention": ("flash_attention.cu", {
+        "flash_attention_f32": (_I, [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                     _I, _I64, _P]),
+        "flash_attention_bf16": (_I, [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                      _I, _I64, _P]),
+        "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+    }),
     "segment_sum": ("segment_sum.cu", {
         "segment_sum_f32": (_I, [_P, _P, _P, _I64, _I64, _I, _P]),
         "segment_sum_bf16": (_I, [_P, _P, _P, _I64, _I64, _I, _P]),

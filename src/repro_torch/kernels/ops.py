@@ -1,7 +1,7 @@
 """Device-dispatching wrappers around the port's Hopper kernels.
 
 Port of ``repro/kernels/ops.py`` (the combine and its sharded-plane uses,
-the refresh scatter, the segment sum and the fused layer).  The tensor's
+the refresh scatter, the segment sum, the fused layer and flash attention).  The tensor's
 device decides the path: a CUDA tensor launches the hand-written kernel
 (``csrc/*.cu``, built on first use by ``build.py``) or raises; a CPU tensor
 runs the plain PyTorch version in ``ref.py``.  There is
@@ -28,13 +28,13 @@ from .build import library
 __all__ = ["assemble_features", "assemble_features_sharded", "gather_rows",
            "cache_combine_legacy", "update_cache_rows", "scatter_rows_",
            "segment_weighted_sum_regular", "fused_gnn_update",
-           "kernel_launches", "reset_kernel_launches", "KERNELS",
+           "flash_attention", "FLASH_HEAD_DIMS", "kernel_launches", "reset_kernel_launches", "KERNELS",
            "COMBINE_ROW_BLOCK", "UPDATE_ROW_BLOCK", "MAX_RING_BYTES"]
 
 # kernel name -> the wrapper's counter; bumped only where a kernel launches
 KERNELS = ("cache_combine", "cache_combine_pipelined", "cache_combine_legacy",
            "cache_update", "cache_update_pipelined", "fused_update",
-           "segment_sum")
+           "segment_sum", "flash_attention")
 # kernel -> the library (csrc source) that holds it, where the names differ
 _LIBRARY = {"cache_combine_pipelined": "cache_combine",
             "cache_combine_legacy": "cache_combine",
@@ -452,3 +452,51 @@ def fused_gnn_update(x_self: torch.Tensor, x_nbr: torch.Tensor,
     """
     return _FusedUpdate.apply(x_self, x_nbr, w_edge, self_scale, w_self,
                               w_agg, bias, int(fanout))
+
+
+# ---------------------------------------------------------- flash attention
+
+FLASH_HEAD_DIMS = (16, 32, 64, 128)   # K8's template instances
+FLASH_MAX_TILE = 512                  # the reference's q_block / kv_tile cap
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_block: int = 512, pos0: int = 0) -> torch.Tensor:
+    """Causal grouped-query attention (forward).
+
+    q: [B, S, Hkv, G, D]; k/v: [B, S, Hkv, D] -> [B, S, Hkv, G, D].  As in
+    the reference's kernel call, S must be a multiple of ``min(q_block, S)``
+    and of ``min(512, S)``: any S up to 512, a multiple of 512 above.  A
+    CUDA tensor launches K8 (f32 or bf16, D in ``FLASH_HEAD_DIMS``) or
+    raises; a CPU tensor runs the plain version.  No gradient yet: a CUDA
+    input that requires one raises rather than dropping it.
+    """
+    if q.dim() != 5 or k.dim() != 4 or k.shape != v.shape \
+            or q.shape[:3] != k.shape[:3] or q.shape[4] != k.shape[3]:
+        raise ValueError(f"flash attention: q [B,S,Hkv,G,D] and k/v "
+                         f"[B,S,Hkv,D] expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, hkv, g, d = (int(x) for x in q.shape)
+    qb, kvt = min(int(q_block), s), min(FLASH_MAX_TILE, s)
+    if s % qb or s % kvt:
+        raise ValueError(f"flash attention: sequence {s} must be a multiple "
+                         f"of its q block {qb} and kv tile {kvt}")
+    if _on_cpu(q):
+        return ref.flash_attention(q, k, v, qb, pos0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash attention has no backward on the card yet (ROADMAP: LM "
+            "training, K8's gradient)")
+    suffix = _SUFFIX.get(q.dtype)
+    if suffix is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention: unsupported dtypes {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash attention: head dim {d} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    _check_tensors("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    _launch("flash_attention", f"flash_attention_{suffix}", q, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hkv, g, d,
+            int(pos0))
+    return out

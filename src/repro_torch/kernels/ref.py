@@ -19,6 +19,8 @@ kernels in ``csrc/`` compute, written as ordinary torch ops: the wrappers in
   destination owns ``fanout`` contiguous edge slots, weighted-summed in f32.
 * ``fused_gnn_update`` — aggregation fused with the update:
   ``(self_scale ⊙ x_self) @ w_self + agg @ w_agg + bias`` in f32.
+* ``flash_attention`` — causal grouped-query attention (K8): scores, mask,
+  softmax and product in f32, one rounding to the input dtype.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import torch
 
 __all__ = ["assemble_features", "expand_rows", "cache_combine_legacy",
            "cache_update",
-           "segment_weighted_sum_regular", "fused_gnn_update"]
+           "segment_weighted_sum_regular", "fused_gnn_update",
+           "flash_attention"]
 
 
 def assemble_features(cache: Optional[torch.Tensor], miss: torch.Tensor,
@@ -124,3 +127,33 @@ def fused_gnn_update(x_self: torch.Tensor, x_nbr: torch.Tensor,
     if bias is not None:
         out = out + bias.float()
     return out.to(x_self.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_block: int = 512, pos0: int = 0) -> torch.Tensor:
+    """Causal grouped-query attention, the function K8 computes.
+
+    q: [B, S, Hkv, G, D]; k/v: [B, S, Hkv, D] -> [B, S, Hkv, G, D] in q's
+    dtype.  Scores ``q . k / sqrt(D)``, the causal mask (``kv_pos <= q_pos``,
+    both offset by ``pos0``; -1e30 elsewhere), the softmax and the product
+    with v all in f32, rounded once at the end.  One q block at a time, so
+    the f32 scores ``[B, Hkv, G, q_block, S]`` stay bounded; a block
+    attends only to the keys up to its last row (the rest are masked, and
+    their exp is exactly 0).
+    """
+    b, s, hkv, g, d = q.shape
+    qb = min(q_block, s)
+    scale = 1.0 / (d ** 0.5)
+    k32, v32 = k.float(), v.float()
+    pos = pos0 + torch.arange(s, device=q.device)
+    out = torch.empty_like(q)
+    for start in range(0, s, qb):
+        stop = min(start + qb, s)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", q[:, start:stop].float(),
+                              k32[:, :stop]) * scale
+        mask = pos[None, :stop] <= pos[start:stop, None]
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        p = torch.softmax(scores, dim=-1)
+        out[:, start:stop] = torch.einsum("bhgqk,bkhd->bqhgd", p,
+                                          v32[:, :stop]).to(q.dtype)
+    return out

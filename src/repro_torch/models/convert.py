@@ -1,0 +1,95 @@
+"""Carrying LM weights between the reference's layout and the port's.
+
+The reference keeps parameters as a nested dict with every layer weight
+stacked on a leading ``[L, ...]`` axis (``embed``, ``final_norm``,
+``lm_head``, ``layers: {ln1, wq, ...}``).  ``load_reference_params`` copies
+such a tree of numpy arrays into an ``LM`` bit for bit; ``export_params``
+gives it back, so a round trip is the identity.
+
+bf16 leaves may arrive as float32 (every bf16 value is exact in f32) or as
+uint16 bit patterns, since numpy has no bf16 without ``ml_dtypes`` (which
+the card's machine lacks).  A float32 leaf that is not exactly a bf16 value
+is refused rather than rounded.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["load_reference_params", "export_params"]
+
+_TOP = ("embed", "final_norm", "lm_head")
+
+
+def _names(model: nn.Module) -> Iterator[Tuple[str, ...]]:
+    """Tree path of every parameter: top-level leaves by name, layer leaves
+    as ``("layers", name)`` (one stacked leaf over all layers)."""
+    for name in _TOP:
+        yield (name,)
+    for name, _ in model.layers[0].named_parameters(recurse=False):
+        yield ("layers", name)
+
+
+def _to_tensor(arr: np.ndarray, dtype: torch.dtype, shape: Tuple[int, ...],
+               path: str) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != shape:
+        raise ValueError(f"{path}: shape {arr.shape}, expected {shape}")
+    if dtype == torch.bfloat16 and arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    if arr.dtype != np.float32:
+        raise TypeError(f"{path}: dtype {arr.dtype}; float32 (or uint16 "
+                        f"bf16 bits) expected")
+    t = torch.from_numpy(arr.copy())
+    if dtype == torch.float32:
+        return t
+    out = t.to(dtype)
+    if not torch.equal(out.float(), t):
+        raise ValueError(f"{path}: float32 values are not exactly "
+                         f"representable in {dtype}")
+    return out
+
+
+def load_reference_params(model: nn.Module,
+                          tree: Dict[str, object]) -> nn.Module:
+    """Copy the reference's parameter tree (numpy leaves, layers stacked
+    ``[L, ...]``) into ``model`` in place, bit for bit; returns it."""
+    with torch.no_grad():
+        for path in _names(model):
+            node: object = tree
+            for key in path:
+                node = node[key]  # type: ignore[index]
+            if path[0] == "layers":
+                like = getattr(model.layers[0], path[1])
+                shape = (len(model.layers), *like.shape)
+            else:
+                like = getattr(model, path[0])
+                shape = tuple(like.shape)
+            t = _to_tensor(node, like.dtype, shape,  # type: ignore[arg-type]
+                           "/".join(path))
+            if path[0] == "layers":
+                for i, layer in enumerate(model.layers):
+                    getattr(layer, path[1]).copy_(t[i])
+            else:
+                like.copy_(t)
+    return model
+
+
+def export_params(model: nn.Module) -> Dict[str, object]:
+    """The reference's tree of ``model``'s weights as numpy float32 (bf16
+    leaves widened exactly), layers stacked ``[L, ...]``."""
+    layers: Dict[str, np.ndarray] = {}
+    tree: Dict[str, object] = {"layers": layers}
+    for path in _names(model):
+        if path[0] == "layers":
+            layers[path[1]] = np.stack([
+                getattr(layer, path[1]).detach().float().cpu().numpy()
+                for layer in model.layers])
+        else:
+            tree[path[0]] = getattr(model, path[0]).detach().float().cpu(
+            ).numpy()
+    return tree

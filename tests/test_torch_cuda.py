@@ -13,18 +13,24 @@ machine does not have.  Each kernel is held against its plain version on
 the same inputs: the combines (K1, K4 at every depth, K7) and the refresh
 scatter (K5, K6) bit-equal, the segment sum rtol=atol=1e-5 in
 f32 (1e-2 in bf16: one rounding of the sum), the fused layer and every
-gradient rtol=atol=1e-4 (fp32 sums in another order than cuBLAS).
+gradient rtol=atol=1e-4 (fp32 sums in another order than cuBLAS), flash
+attention (K8) rtol=atol=2e-5 in f32 (the online softmax sums 64-key
+tiles in another order than the plain version's one softmax) and 1e-2 in
+bf16 (one rounding of an f32 value that may differ in its last bits).
 """
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import HybridConfig, HybridGNNTrainer
 from repro_torch.dist import peer_gather_rows
 from repro_torch.graph import GNNConfig, make_dataset
 from repro_torch.kernels import ops, ref
+from repro_torch.models import forward, init_params
 
 
 @pytest.fixture
@@ -362,3 +368,70 @@ def test_trainer_on_card_matches_host(cuda, agg_impl):
     key = "fused_update" if agg_impl == "kernel_fused" else "segment_sum"
     assert launches[key] == 2 * accel_iters
     assert runs["cpu"][1] == {k: 0 for k in ops.KERNELS}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [100, 512, 2048])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_matches_plain(cuda, dtype, s, g, d):
+    """K8 against its plain version at every head dim it is built for,
+    with and without grouping, a ragged length (100 = one 64-key tile and
+    a 36-key tail), one 512 block and four; pos0 = 7 shifts q and k
+    alike."""
+    gen = torch.Generator().manual_seed(s * d + g)
+    b, hkv = 2, 2
+    q = _randn(gen, b, s, hkv, g, d, device=cuda).to(dtype)
+    k = _randn(gen, b, s, hkv, d, device=cuda).to(dtype)
+    v = _randn(gen, b, s, hkv, d, device=cuda).to(dtype)
+    n0 = ops.kernel_launches()["flash_attention"]
+    got = ops.flash_attention(q, k, v, 512, 7)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["flash_attention"] == n0 + 1
+    want = ref.flash_attention(q, k, v, 512, 7)
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-2)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_attention_refuses_gradient_and_bad_inputs(cuda):
+    q = torch.randn(1, 64, 1, 2, 16, device=cuda, requires_grad=True)
+    k = torch.randn(1, 64, 1, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="LM training"):
+        ops.flash_attention(q, k, k)
+    with torch.no_grad():                      # nothing to drop
+        ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(torch.zeros(1, 8, 1, 1, 24, device=cuda),
+                            *[torch.zeros(1, 8, 1, 24, device=cuda)] * 2)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.flash_attention(q.detach().half(), k.half(), k.half())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_lm_flash_matches_blocked_on_card(cuda, dtype):
+    """The reduced llama's forward on the card through K8 and through the
+    blocked plain path, from the same weights: logits within 1e-4 in f32,
+    within 0.125 (0.02 on average) in bf16, where blocked rounds p to bf16
+    before p @ v and flash does not."""
+    base = dataclasses.replace(get_arch("llama3.2-1b", reduced=True),
+                               dtype=dtype)
+    model = init_params(base, torch.Generator(device=cuda).manual_seed(0),
+                        cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, base.vocab, (2, 128)).astype(np.int32)).to(cuda)
+    out = {}
+    for impl in ("flash", "blocked"):
+        ops.reset_kernel_launches()
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        logits, _, caches = forward(model, cfg, {"tokens": toks},
+                                    return_cache=True)
+        out[impl] = (logits.float(), ops.kernel_launches()[
+            "flash_attention"])
+    assert out["flash"][1] == base.n_layers and out["blocked"][1] == 0
+    diff = (out["flash"][0] - out["blocked"][0]).abs()
+    if dtype == "float32":
+        assert float(diff.max()) <= 1e-4
+    else:
+        assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02

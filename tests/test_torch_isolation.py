@@ -2,6 +2,7 @@
 reference package, its entry points refuse to run without CUDA unless asked
 for the host, and every knob outside the ported slice raises."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -12,7 +13,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import HybridConfig, HybridGNNTrainer
+from repro_torch.configs import get_arch
 from repro_torch.graph import GNNConfig, make_dataset
+from repro_torch.models import init_decode_cache, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -138,3 +141,31 @@ def test_unknown_agg_impl_and_dtype_rejected():
         GNNConfig(agg_impl="cutlass")
     with pytest.raises(ValueError):
         HybridConfig(feature_dtype="float16")
+
+
+@pytest.mark.parametrize("arch,kw,item", [
+    ("mixtral-8x22b", {}, "MoE"),
+    ("llama4-scout-17b-a16e", {}, "MoE"),
+    ("rwkv6-1.6b", {}, "RWKV"),
+    ("zamba2-7b", {}, "RWKV and Mamba"),
+    ("llama3.2-1b", {"window": 8}, "SWA"),
+    ("musicgen-medium", {}, "stub frontends"),
+    ("internvl2-1b", {}, "stub frontends"),
+], ids=lambda x: x if isinstance(x, str) else "")
+def test_unported_lm_config_raises(arch, kw, item):
+    """The LM slice runs dense full-attention text models; every other
+    kind, window or frontend names its ROADMAP item."""
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), **kw)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP: LM stack, "
+                                                  f"{item}"):
+        init_params(cfg, gen, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_decode_cache(cfg, 1, 8, "cpu")
+
+
+def test_serve_default_device_requires_cuda(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3.2-1b", "--reduced"])

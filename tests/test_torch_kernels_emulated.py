@@ -8,10 +8,12 @@ becomes a loop over the grid.  The wrappers in ``kernels.ops`` then drive
 these builds through the same ctypes entry points (argument types, pointers,
 shapes) and are held against the plain versions: the combine and the refresh
 scatter bit-equal, the segment sum and the fused layer within rtol=1e-5 /
-1e-4.  The ``cuda_pipeline.h`` primitives of the multi-buffered combine and
+1e-4, flash attention (K8) within 1e-5 in f32 and 1e-2 in bf16.  The ``cuda_pipeline.h`` primitives of the multi-buffered combine and
 scatter (K4, K6) run as synchronous copies and dynamic shared memory as a
 static buffer, so the ring's slot arithmetic is checked but not its
-overlap.  This checks the
+overlap.  ``__shfl_xor_sync`` exchanges through a block-wide buffer between
+two barriers, so it needs every thread of the block to call it together,
+as K8's row reductions do.  This checks the
 kernels' index math, masking and tile choice; it says nothing about speed
 or about what nvcc accepts, which only the card shows.
 """
@@ -31,6 +33,7 @@ CUDA_RUNTIME_H = r"""
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 #define __global__
@@ -65,6 +68,18 @@ struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d}; }
 template <class T> T __ldg(const T* p) { return *p; }
+inline unsigned char emu_shfl_buf[1024 * 8];
+template <class T> T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) <= 8, "emulated shuffle of 8 bytes at most");
+  const unsigned t = threadIdx.x + blockDim.x * (threadIdx.y +
+                                                 blockDim.y * threadIdx.z);
+  std::memcpy(emu_shfl_buf + 8 * t, &v, sizeof(T));
+  __syncthreads();
+  T out;
+  std::memcpy(&out, emu_shfl_buf + 8 * (t ^ lane_mask), sizeof(T));
+  __syncthreads();
+  return out;
+}
 template <class F> void emu_launch(dim3 grid, dim3 block, F f) {
   gridDim = grid; blockDim = block;
   const unsigned nt = block.x * block.y * block.z;
@@ -352,3 +367,42 @@ def test_emulated_launches_are_counted(emulated_ops):
     after = emulated_ops.kernel_launches()
     assert after["segment_sum"] == before["segment_sum"] + 1
     assert after["cache_combine"] == before["cache_combine"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pos0", [
+    ((1, 100, 2, 2, 16), 0),      # ragged length, a position across CTAs
+    ((1, 70, 1, 3, 32), 5),       # G = 3: CTAs start mid-position
+    ((2, 20, 1, 1, 64), 0),       # G = 1, two batch rows
+    ((1, 40, 1, 2, 128), 2)])     # the widest head
+def test_emulated_flash_attention(emulated_ops, dtype, shape, pos0):
+    """K8 through its ctypes entry point against the plain flash attention:
+    f32 within 1e-5 (the online softmax sums in another order), bf16
+    within 1e-2 (one rounding of an f32 value that differs in its last
+    bits)."""
+    b, s, hkv, g, d = shape
+    gen = torch.Generator().manual_seed(s + d)
+    q = torch.randn(b, s, hkv, g, d, generator=gen).to(dtype)
+    k = torch.randn(b, s, hkv, d, generator=gen).to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=gen).to(dtype)
+    before = emulated_ops.kernel_launches()["flash_attention"]
+    got = emulated_ops.flash_attention(q, k, v, 512, pos0)
+    assert emulated_ops.kernel_launches()["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, 512, pos0)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-2)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_emulated_flash_attention_refuses_other_head_dims(emulated_ops):
+    q = torch.zeros(1, 8, 1, 1, 24)
+    k = torch.zeros(1, 8, 1, 24)
+    with pytest.raises(ValueError, match="head dim"):
+        emulated_ops.flash_attention(q, k, k)
+    # the C entry point refuses it too
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        emulated_ops._launch("flash_attention", "flash_attention_f32", q,
+                             q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                             out.data_ptr(), 1, 8, 1, 1, 24, 0)
