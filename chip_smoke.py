@@ -59,8 +59,10 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
                llama3.2-1b (the stepwise route, no K8)
 
 The kernels phase also holds K8 (flash attention) against its plain version
-at the prefill's shape in f32 and bf16 and times it beside
-``scaled_dot_product_attention`` (timed only; the port never calls it).
+at the prefill's shape in f32 (the FMA body) and bf16 (the tensor-core
+body) and times the bf16 body beside ``scaled_dot_product_attention``
+(timed only; the port never calls it), with its achieved TFLOP/s and the
+fraction of its bound it reaches.
 
 then the card's name and power limit as nvidia-smi prints them, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -425,16 +427,19 @@ def flash_kernel(dev, peak_bw: float) -> dict:
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     flops = 2 * b * hkv * g * d * s * s      # causal: half of 4*B*Hq*D*S^2
     byts = nbytes(q, k, v) + q.numel() * q.element_size()
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, cfg.q_block))
+    bound_ms = max(byts / peak_bw, flops / BF16_TFLOPS) * 1e3
     return dict(
         name="flash_attention", shape=[b, s, hkv, g, d], dtype="bfloat16",
         max_abs_err=err[str(torch.bfloat16)], max_abs_err_by_dtype=err,
-        ms=time_ms(lambda: ops.flash_attention(q, k, v, cfg.q_block)),
+        ms=ms,
         plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, cfg.q_block)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
-        bound_ms=max(byts / peak_bw, flops / BF16_TFLOPS) * 1e3,
+        bound_ms=bound_ms,
         bound_by=("bytes" if byts / peak_bw >= flops / BF16_TFLOPS
-                  else "operations"), bytes=byts, flops=flops)
+                  else "operations"), bytes=byts, flops=flops,
+        tflops=flops / (ms * 1e-3) / 1e12, bound_fraction=bound_ms / ms)
 
 
 def pipelined_and_legacy_combine(cache32, miss32, look, dev, k1_bytes,
@@ -1110,7 +1115,9 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=k["library_ms"]))
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            **{key: k[key] for key in ("tflops", "bound_fraction")
+               if key in k}))
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

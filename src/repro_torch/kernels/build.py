@@ -6,8 +6,9 @@ Each ``csrc/*.cu`` file has a plain C interface.  At the first CUDA use,
 together), and ``ctypes`` loads them.  Nothing is built when a module is
 imported: the CPU tests import every module of the port.
 
-Libraries are named by a hash of their sources and flags, so an edited
-source rebuilds and an unchanged one is reused.  A missing ``nvcc`` or a
+Libraries are named by a hash of their sources, the shared headers and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  A missing ``nvcc`` or a
 failed build raises; there is no fallback.
 """
 from __future__ import annotations
@@ -96,7 +97,7 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src, _ = _KERNELS[name]
     h = hashlib.sha256()
-    for part in (CSRC / src, CSRC / "common.cuh"):
+    for part in (CSRC / src, *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -467,9 +467,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: [B, S, Hkv, G, D]; k/v: [B, S, Hkv, D] -> [B, S, Hkv, G, D].  As in
     the reference's kernel call, S must be a multiple of ``min(q_block, S)``
     and of ``min(512, S)``: any S up to 512, a multiple of 512 above.  A
-    CUDA tensor launches K8 (f32 or bf16, D in ``FLASH_HEAD_DIMS``) or
-    raises; a CPU tensor runs the plain version.  No gradient yet: a CUDA
-    input that requires one raises rather than dropping it.
+    CUDA tensor launches K8 (f32 or bf16, D in ``FLASH_HEAD_DIMS``, every
+    base pointer 16-byte aligned) or raises; a CPU tensor runs the plain
+    version.  No gradient yet: a CUDA input that requires one raises
+    rather than dropping it.
     """
     if q.dim() != 5 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[:3] != k.shape[:3] or q.shape[4] != k.shape[3]:

@@ -16,7 +16,8 @@ f32 (1e-2 in bf16: one rounding of the sum), the fused layer and every
 gradient rtol=atol=1e-4 (fp32 sums in another order than cuBLAS), flash
 attention (K8) rtol=atol=2e-5 in f32 (the online softmax sums 64-key
 tiles in another order than the plain version's one softmax) and 1e-2 in
-bf16 (one rounding of an f32 value that may differ in its last bits).
+bf16 (the tensor-core body rounds p to bf16 for P V, and the output is
+rounded once from an f32 value that may differ in its last bits).
 """
 import dataclasses
 import math
@@ -370,29 +371,67 @@ def test_trainer_on_card_matches_host(cuda, agg_impl):
     assert runs["cpu"][1] == {k: 0 for k in ops.KERNELS}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [100, 512, 2048])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_flash_attention_matches_plain(cuda, dtype, s, g, d):
-    """K8 against its plain version at every head dim it is built for,
-    with and without grouping, a ragged length (100 = one 64-key tile and
-    a 36-key tail), one 512 block and four; pos0 = 7 shifts q and k
-    alike."""
+def _flash_case(cuda, dtype, b, s, hkv, g, d, pos0):
+    """K8 once on seeded inputs, against its plain version."""
     gen = torch.Generator().manual_seed(s * d + g)
-    b, hkv = 2, 2
     q = _randn(gen, b, s, hkv, g, d, device=cuda).to(dtype)
     k = _randn(gen, b, s, hkv, d, device=cuda).to(dtype)
     v = _randn(gen, b, s, hkv, d, device=cuda).to(dtype)
     n0 = ops.kernel_launches()["flash_attention"]
-    got = ops.flash_attention(q, k, v, 512, 7)
+    got = ops.flash_attention(q, k, v, 512, pos0)
     torch.cuda.synchronize()
     assert ops.kernel_launches()["flash_attention"] == n0 + 1
-    want = ref.flash_attention(q, k, v, 512, 7)
+    want = ref.flash_attention(q, k, v, 512, pos0)
     tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else \
         dict(rtol=1e-2, atol=1e-2)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [100, 512, 2048])
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("pos0", [0, 7])
+def test_flash_attention_matches_plain(cuda, dtype, s, g, d, pos0):
+    """K8 against its plain version at every head dim it is built for,
+    with and without grouping (G = 3: CTAs start mid-position), a ragged
+    length (100 = one 64-key tile and a 36-key tail), one 512 block and
+    four; pos0 = 7 shifts q and k alike."""
+    _flash_case(cuda, dtype, 2, s, 2, g, d, pos0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_prefill_length(cuda, dtype):
+    """The serving prefill's length and head shape (S 4096, 8 KV heads of
+    G 4, D 64) at B 1: every tile kind, from the first CTA's one masked
+    tile to the last one's 63 unmasked tiles before its diagonal."""
+    _flash_case(cuda, dtype, 1, 4096, 8, 4, 64, 0)
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+@pytest.mark.parametrize("operand", ["q", "k", "o"])
+def test_flash_attention_refuses_misaligned_bf16(cuda, offset, operand):
+    """A bf16 base pointer off a 16-byte boundary (a view offset by one
+    element, 2 bytes, or by four, 8 bytes) raises instead of launching:
+    the bf16 body copies 16 bytes a thread."""
+    shapes = dict(q=(1, 64, 1, 2, 16), k=(1, 64, 1, 16), o=(1, 64, 1, 2, 16))
+
+    def view(name):
+        n = math.prod(shapes[name])
+        off = offset if name == operand else 0
+        return torch.randn(n + off, device=cuda).to(
+            torch.bfloat16)[off:].view(shapes[name])
+    q, k, o = view("q"), view("k"), view("o")
+    n0 = ops.kernel_launches()["flash_attention"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._launch("flash_attention", "flash_attention_bf16", q,
+                    q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(),
+                    1, 64, 1, 2, 16, 0)
+    if operand != "o":             # the wrapper's own output is aligned
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops.flash_attention(q, k, k)
+    assert ops.kernel_launches()["flash_attention"] == n0
 
 
 def test_flash_attention_refuses_gradient_and_bad_inputs(cuda):

@@ -13,10 +13,15 @@ scatter (K4, K6) run as synchronous copies and dynamic shared memory as a
 static buffer, so the ring's slot arithmetic is checked but not its
 overlap.  ``__shfl_xor_sync`` exchanges through a block-wide buffer between
 two barriers, so it needs every thread of the block to call it together,
-as K8's row reductions do.  This checks the
+as K8's row reductions do.  K8's bf16 body runs on ``mma.cuh``'s
+tensor-core primitives; their emulation (``ldmatrix`` plain and
+transposed, the m16n8k16 bf16 product with the PTX ISA's fragment
+layouts, ``cp.async`` with zero fill as a synchronous copy) exchanges
+the same way, and one case holds it against numpy.  This checks the
 kernels' index math, masking and tile choice; it says nothing about speed
 or about what nvcc accepts, which only the card shows.
 """
+import ctypes
 import re
 import shutil
 import subprocess
@@ -60,6 +65,7 @@ inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 struct uint4 { unsigned x, y, z, w; };
@@ -120,6 +126,81 @@ inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
 inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
 """
 
+# mma.cuh's primitives with the PTX ISA's per-lane fragment layouts
+# (groupID = lane >> 2, the lane's column pair 2 * (lane & 3)).  Lanes
+# exchange row addresses and fragments through block-wide buffers between
+# two barriers, like the shuffle, so every thread of the block calls them
+# together.  The product sums each k16 step in f32 and adds it to D.
+MMA_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+#include "cuda_runtime.h"
+#include "cuda_bf16.h"
+inline unsigned emu_tid() {
+  return threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
+}
+inline const void* emu_rows[1024];
+inline uint32_t emu_frags[1024][6];
+inline uint32_t emu_b16(const void* row, int col) {
+  uint16_t x; std::memcpy(&x, static_cast<const char*>(row) + 2 * col, 2);
+  return x; }
+inline void emu_ldmatrix(uint32_t (&r)[4], const void* row, bool trans) {
+  const unsigned t = emu_tid(), warp0 = t & ~31u, lane = t & 31u;
+  emu_rows[t] = row;
+  __syncthreads();
+  const int gr = lane >> 2, c = 2 * (lane & 3);
+  for (int j = 0; j < 4; ++j) {
+    const void* const* m = emu_rows + warp0 + 8 * j;  // matrix j's rows
+    r[j] = trans ? emu_b16(m[c], gr) | emu_b16(m[c + 1], gr) << 16
+                 : emu_b16(m[gr], c) | emu_b16(m[gr], c + 1) << 16;
+  }
+  __syncthreads();
+}
+inline void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  emu_ldmatrix(r, row, false); }
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  emu_ldmatrix(r, row, true); }
+inline float emu_bf(uint32_t w, int hi) {
+  __nv_bfloat16 b; b.x = (unsigned short)(hi ? w >> 16 : w & 0xFFFFu);
+  return __bfloat162float(b); }
+inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                           uint32_t b0, uint32_t b1) {
+  const unsigned t = emu_tid(), warp0 = t & ~31u, lane = t & 31u;
+  const uint32_t mine[6] = {a[0], a[1], a[2], a[3], b0, b1};
+  std::memcpy(emu_frags[t], mine, sizeof mine);
+  __syncthreads();
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const uint32_t* f = emu_frags[warp0 + l];
+    const int gr = l >> 2, c = 2 * (l & 3);
+    for (int e = 0; e < 2; ++e) {
+      A[gr][c + e] = emu_bf(f[0], e);
+      A[gr + 8][c + e] = emu_bf(f[1], e);
+      A[gr][c + 8 + e] = emu_bf(f[2], e);
+      A[gr + 8][c + 8 + e] = emu_bf(f[3], e);
+      B[c + e][gr] = emu_bf(f[4], e);
+      B[c + 8 + e][gr] = emu_bf(f[5], e);
+    }
+  }
+  __syncthreads();
+  const int gr = lane >> 2, c = 2 * (lane & 3);
+  for (int i = 0; i < 4; ++i) {
+    const int row = gr + 8 * (i >> 1), col = c + (i & 1);
+    float sum = 0.f;
+    for (int kk = 0; kk < 16; ++kk) sum += A[row][kk] * B[kk][col];
+    d[i] += sum;
+  }
+}
+inline void cp_async_16(void* dst, const void* src, bool valid) {
+  if (valid) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16); }
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+inline uint32_t pack_bf16x2(float lo, float hi) {
+  return uint32_t(__float2bfloat16_rn(lo).x) |
+         uint32_t(__float2bfloat16_rn(hi).x) << 16; }
+"""
+
 CUDA_PIPELINE_H = r"""
 #pragma once
 #include <cstddef>
@@ -147,6 +228,26 @@ def _emulated(src: str) -> str:
     return _LAUNCH.sub(repl, src)
 
 
+def _write_headers(out):
+    """The emulation headers, and the port's own common.cuh, into ``out``."""
+    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    (out / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
+    (out / "mma.cuh").write_text(MMA_H)
+    shutil.copy(build.CSRC / "common.cuh", out / "common.cuh")
+
+
+def _compile(cxx, out, name, cuda_src):
+    """``cuda_src`` rewritten for the host and built into ``out``."""
+    src = out / f"{name}.cpp"
+    src.write_text(_emulated(cuda_src))
+    lib = out / f"lib{name}.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", "-I", str(out), str(src), "-o", str(lib)],
+                   check=True, capture_output=True, timeout=300)
+    return lib
+
+
 @pytest.fixture(scope="module")
 def emulated_ops(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -154,19 +255,11 @@ def emulated_ops(tmp_path_factory):
         pytest.skip("needs a host C++20 compiler (g++) to emulate the "
                     "CUDA sources")
     out = tmp_path_factory.mktemp("cuda_emu")
-    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
-    (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
-    (out / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
-    shutil.copy(build.CSRC / "common.cuh", out / "common.cuh")
+    _write_headers(out)
 
     def compile_one(name):
-        src = out / f"{name}.cpp"
-        src.write_text(_emulated((build.CSRC / f"{name}.cu").read_text()))
-        lib = out / f"lib{name}.so"
-        subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                        "-pthread", "-I", str(out), str(src), "-o",
-                        str(lib)], check=True, capture_output=True,
-                       timeout=300)
+        lib = _compile(cxx, out, name,
+                       (build.CSRC / f"{name}.cu").read_text())
         return name, build._bind(name, lib)
 
     with ThreadPoolExecutor(4) as pool:
@@ -377,8 +470,9 @@ def test_emulated_launches_are_counted(emulated_ops):
     ((1, 40, 1, 2, 128), 2)])     # the widest head
 def test_emulated_flash_attention(emulated_ops, dtype, shape, pos0):
     """K8 through its ctypes entry point against the plain flash attention:
-    f32 within 1e-5 (the online softmax sums in another order), bf16
-    within 1e-2 (one rounding of an f32 value that differs in its last
+    f32 (the FMA body) within 1e-5 (the online softmax sums in another
+    order), bf16 (the tensor-core body) within 1e-2 (p rounded to bf16 for
+    P V, and one rounding of an f32 value that differs in its last
     bits)."""
     b, s, hkv, g, d = shape
     gen = torch.Generator().manual_seed(s + d)
@@ -395,6 +489,26 @@ def test_emulated_flash_attention(emulated_ops, dtype, shape, pos0):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+@pytest.mark.parametrize("offset", [1, 4])
+def test_emulated_flash_attention_refuses_misaligned_bf16(emulated_ops,
+                                                          offset):
+    """K8's entry point refuses a bf16 q off a 16-byte boundary (offset by
+    one element, 2 bytes, or four, 8 bytes): the bf16 body copies 16 bytes
+    a thread.  The wrapper raises and counts no launch."""
+    n = 1 * 64 * 1 * 2 * 16
+    q = torch.randn(n + offset).to(torch.bfloat16)[offset:].view(
+        1, 64, 1, 2, 16)
+    k = torch.randn(1, 64, 1, 16).to(torch.bfloat16)
+    before = emulated_ops.kernel_launches()["flash_attention"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        emulated_ops.flash_attention(q, k, k)
+    assert emulated_ops.kernel_launches()["flash_attention"] == before
+    # the same values from an aligned copy launch
+    got = emulated_ops.flash_attention(q.clone(), k, k)
+    torch.testing.assert_close(got.float(), ref.flash_attention(
+        q, k, k).float(), rtol=1e-2, atol=1e-2)
+
+
 def test_emulated_flash_attention_refuses_other_head_dims(emulated_ops):
     q = torch.zeros(1, 8, 1, 1, 24)
     k = torch.zeros(1, 8, 1, 24)
@@ -406,3 +520,75 @@ def test_emulated_flash_attention_refuses_other_head_dims(emulated_ops):
         emulated_ops._launch("flash_attention", "flash_attention_f32", q,
                              q.data_ptr(), k.data_ptr(), k.data_ptr(),
                              out.data_ptr(), 1, 8, 1, 1, 24, 0)
+
+
+# One warp: A [16][16] into A-fragments, B as K's row-major [n][k] tile
+# (ldmatrix.x4) and as V's row-major [k][n] tile (ldmatrix.x4.trans), each
+# giving the B-fragments of two n8 tiles, with K8's lane addresses; the
+# four products' C-fragments are written out as [16][16].
+_MMA_LAYOUT_CU = r"""
+#include "common.cuh"
+#include "mma.cuh"
+namespace {
+__global__ void layout_kernel(const __nv_bfloat16* a, const __nv_bfloat16* bk,
+                              const __nv_bfloat16* bv, float* dk, float* dv) {
+  __align__(16) __shared__ __nv_bfloat16 sa[16][24], sk[16][24], sv[16][24];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < 256; i += 32) {
+    sa[i / 16][i % 16] = a[i];
+    sk[i / 16][i % 16] = bk[i];
+    sv[i / 16][i % 16] = bv[i];
+  }
+  __syncthreads();
+  uint32_t af[4], kf[4], vf[4];
+  ldmatrix_x4(af, &sa[(lane & 7) + ((lane >> 3) & 1) * 8][(lane >> 4) * 8]);
+  ldmatrix_x4(kf, &sk[(lane & 7) + (lane >> 4) * 8][((lane >> 3) & 1) * 8]);
+  ldmatrix_x4_trans(vf,
+                    &sv[(lane & 7) + ((lane >> 3) & 1) * 8][(lane >> 4) * 8]);
+  float ck[2][4] = {}, cv[2][4] = {};
+  mma_bf16_16816(ck[0], af, kf[0], kf[1]);
+  mma_bf16_16816(ck[1], af, kf[2], kf[3]);
+  mma_bf16_16816(cv[0], af, vf[0], vf[1]);
+  mma_bf16_16816(cv[1], af, vf[2], vf[3]);
+  for (int n = 0; n < 2; ++n)
+    for (int i = 0; i < 4; ++i) {
+      const int row = (lane >> 2) + 8 * (i >> 1);
+      const int col = 8 * n + 2 * (lane & 3) + (i & 1);
+      dk[row * 16 + col] = ck[n][i];
+      dv[row * 16 + col] = cv[n][i];
+    }
+}
+}  // namespace
+REPRO_API void mma_layout(const void* a, const void* bk, const void* bv,
+                          void* dk, void* dv) {
+  layout_kernel<<<1, 32>>>(static_cast<const __nv_bfloat16*>(a),
+                           static_cast<const __nv_bfloat16*>(bk),
+                           static_cast<const __nv_bfloat16*>(bv),
+                           static_cast<float*>(dk), static_cast<float*>(dv));
+}
+"""
+
+
+def test_emulated_mma_ldmatrix_layouts_match_numpy(tmp_path):
+    """The emulated ldmatrix.x4 / .x4.trans and mma.m16n8k16 compose, with
+    the lane addresses K8 uses, into the products numpy computes: A [16x16]
+    times K^T (two 16x8 tiles from a [key][d] tile) and times V (two 16x8
+    tiles from a [key][d] tile).  Small integers, so every product and sum
+    is exact in bf16 and f32."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the "
+                    "CUDA sources")
+    _write_headers(tmp_path)
+    lib = ctypes.CDLL(str(_compile(cxx, tmp_path, "mma_layout",
+                                   _MMA_LAYOUT_CU)))
+    lib.mma_layout.argtypes = [ctypes.c_void_p] * 5
+    lib.mma_layout.restype = None
+    rng = np.random.default_rng(0)
+    a, bk, bv = (rng.integers(-4, 5, (16, 16)).astype(np.float32)
+                 for _ in range(3))
+    ts = [torch.from_numpy(x).to(torch.bfloat16) for x in (a, bk, bv)]
+    dk, dv = torch.zeros(16, 16), torch.zeros(16, 16)
+    lib.mma_layout(*(t.data_ptr() for t in (*ts, dk, dv)))
+    np.testing.assert_array_equal(dk.numpy(), a @ bk.T)
+    np.testing.assert_array_equal(dv.numpy(), a @ bv)
