@@ -4,9 +4,13 @@
 
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each kernel against its plain PyTorch version on
-the card at the slice's full-width shapes, times both with CUDA events, and
-drives the hybrid trainer (``repro_torch.core.HybridGNNTrainer``) on
-``cuda:0`` with the paper's ``sage-products`` configuration (layer widths
+the card at the slice's full-width shapes, times the kernel, the plain
+version and the library call two ways (``ms``: the device time of one call
+alone, its inputs cold, from torch.profiler's per-kernel durations with the
+L2 flushed before each call; ``call_ms``: one host-inclusive call between
+two CUDA events, as a Python caller pays it), and drives the hybrid
+trainer (``repro_torch.core.HybridGNNTrainer``) on ``cuda:0`` with the
+paper's ``sage-products`` configuration (layer widths
 (100, 256, 47), fanouts (25, 10), batch 1024, fused layer kernel, 20 % hot
 cache, dedup, DRM).  Phases, each printing one JSON line:
 
@@ -17,10 +21,10 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
                through its (sel, row) tables: bit-equal), K2 fused layer
                (SAGE split W, GCN shared W) and K3 segment sum (f32, bf16)
                against their plain versions, K2/K3 gradients against plain
-               autograd, K5/K6 refresh scatter (depths 1, 2, 4; f32, bf16;
+               autograd, K5/K6 refresh scatter (depths 1-4; f32, bf16;
                the slots and rows of a real first commit, plus aliased
                slots: bit-equal to the plain keep-last scatter and to K5),
-               and each kernel's time, plain time, library time and bound;
+               and each kernel's times, plain times, library times and bound;
                K8 flash attention at the serve phase's prefill shape
   train        ~10 iterations of the slice on the card; asserts finite
                losses, an accelerator share on every iteration, CUDA inputs
@@ -35,8 +39,8 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
                off from the same weights, 4 iterations: layer-0 inputs and
                losses bit-equal; (c) async_refresh=True commits and matches
                (b)'s losses; (d) FeatureCache commits at
-               kernel_pipeline_depth 2 and 4 launch K6 and give the depth-1
-               device block bit for bit
+               kernel_pipeline_depth 2, 3 and 4 launch K6 and give the
+               depth-1 device block bit for bit
   shard        n_accel=4 accelerator-only (all four on cuda:0), cache 20 %
                per device, kernel_pipeline_depth=2, 6 iterations, replicated
                then sharded (hash placement) from the same weights: layer-0
@@ -107,7 +111,7 @@ K_SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:68"),
 }
-K6_DEPTHS = (2, 4)           # K6's line reports depth 2; the phase has both
+K6_DEPTHS = (2, 3, 4)        # K6's line reports depth 2
 K4_DEPTHS = (2, 3, 4)        # K4's line reports depth 2
 SHARD_ACCEL = 4
 STAGES = ("t_sc", "t_load", "t_tran", "t_tc", "t_ta")
@@ -127,8 +131,15 @@ K8_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 BF16_MAX, BF16_MEAN = 0.25, 0.03
 
 
+PHASE_LOG: list = []         # --out's phases.jsonl, when given
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+    line = json.dumps({"phase": phase, **fields}, default=float)
+    print(line, flush=True)
+    if PHASE_LOG:
+        with open(PHASE_LOG[0], "a") as fh:
+            fh.write(line + "\n")
 
 
 def check(cond: bool, what: str) -> None:
@@ -143,8 +154,11 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+def call_ms(fn, reps: int = 30, warmup: int = 5) -> float:
+    """What one Python call of ``fn`` costs its caller, host included: the
+    median over ``reps`` calls of the time between a CUDA event recorded
+    before the call and one recorded after it (the stream idles while the
+    host runs the wrapper).  Inputs stay warm in L2."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -158,6 +172,97 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# The device-time yardstick: before each timed call a 256 MB buffer is
+# rewritten (bitwise_not_, a kernel no timed function launches), which
+# evicts the 50 MB L2, so every call meets its inputs cold.
+FLUSH_ELEMS = (256 << 20) // 8
+FLUSH_KERNEL = "bitwise_not"
+SLEEP_CYCLES = 50_000_000      # ~25 ms at 2 GHz: the host enqueues first
+TIMING = {"method": None}      # "profiler" or "events", fixed at first use
+_flush_buf: list = []
+
+
+def flush_l2() -> None:
+    if not _flush_buf:
+        _flush_buf.append(torch.zeros(FLUSH_ELEMS, dtype=torch.int64,
+                                      device="cuda"))
+    _flush_buf[0].bitwise_not_()
+
+
+def _profiled_ms(fn, reps: int):
+    """Per call, the summed device durations of every kernel, copy and
+    memset ``fn`` launched (torch.profiler, CUPTI), split at the flush
+    kernels; the median over ``reps`` calls, or None when the profiler saw
+    no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    calls: list = []
+    for e in dev:
+        if FLUSH_KERNEL in e.name:
+            calls.append(0.0)
+        elif calls:
+            calls[-1] += e.time_range.end - e.time_range.start   # us
+    if len(calls) != reps or not all(c > 0 for c in calls):
+        return None
+    return statistics.median(calls) / 1e3
+
+
+def _event_ms(fn, reps: int) -> float:
+    """The fallback: CUDA events around ``reps`` (flush, call) pairs queued
+    behind a device sleep, so the host has enqueued them all before the
+    device reaches them; the same loop with the flushes alone subtracted."""
+    def run(call: bool) -> float:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            flush_l2()
+            if call:
+                fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    return max(run(True) - run(False), 0.0) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """The device time of one call of ``fn`` alone, its inputs cold in L2:
+    the host's time between launches is not in it.  torch.profiler's
+    per-kernel device durations where the profiler sees the device, else
+    CUDA events behind a device sleep (``TIMING["method"]`` says which)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if TIMING["method"] is None:
+        probe = _profiled_ms(lambda: torch.empty(1 << 20,
+                                                 device="cuda").fill_(1.0),
+                             3)
+        TIMING["method"] = "profiler" if probe else "events"
+    if TIMING["method"] == "profiler":
+        ms = _profiled_ms(fn, reps)
+        check(ms is not None, "the profiler lost a timed call's kernels")
+        return ms
+    return _event_ms(fn, reps)
+
+
+def timed(fn, prefix: str = "") -> dict:
+    """Both readings of ``fn``: ``{prefix}ms`` (device time alone, L2
+    flushed) and ``{prefix}call_ms`` (one host-inclusive call)."""
+    return {f"{prefix}ms": device_ms(fn), f"{prefix}call_ms": call_ms(fn)}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -259,12 +364,11 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
     k1_bound = k1_bytes / peak_bw * 1e3
     out["cache_combine"] = dict(
         name="cache_combine", max_abs_err=0.0, shape=[n, f],
-        ms=time_ms(lambda: ops.assemble_features(cache32, miss32, slots,
-                                                 mi)),
-        plain_ms=time_ms(lambda: ref.assemble_features(cache32, miss32,
-                                                       slots, mi)),
-        library_ms=None, bound_ms=k1_bound, bound_by="bytes",
-        bytes=k1_bytes, flops=0)
+        **timed(lambda: ops.assemble_features(cache32, miss32, slots, mi)),
+        **timed(lambda: ref.assemble_features(cache32, miss32, slots, mi),
+                "plain_"),
+        library_ms=None, library_call_ms=None, bound_ms=k1_bound,
+        bound_by="bytes", bytes=k1_bytes, flops=0)
     out.update(pipelined_and_legacy_combine(cache32, miss32, look, dev,
                                             k1_bytes, k1_bound))
 
@@ -324,7 +428,8 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
                                       ins_r, g)
         for i, (a, r) in enumerate(zip(grads_k, grads_r)):
             err2 = max(err2, close(a, r, 1e-4, 1e-4, f"K2 grad {name}[{i}]"))
-    ms = plain = bound = 0.0
+    sums = dict.fromkeys(("ms", "call_ms", "plain_ms", "plain_call_ms",
+                          "bound_ms"), 0.0)
     b2_total = fl2_total = 0
     for name in ("sage1", "sage2"):   # the slice's two launches
         xs, xn, we, ss, ws, wa, bb, fan = layers[name]
@@ -332,16 +437,17 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
         o_ = ws.shape[1]
         byts = nbytes(xs, xn, we, ss, ws, wa, bb) + d_ * o_ * 4
         flops = 4 * d_ * f_ * o_ + 2 * d_ * fan * f_ + d_ * f_
-        lms = time_ms(lambda: ops.fused_gnn_update(*layers[name]))
-        pms = time_ms(lambda: ref.fused_gnn_update(*layers[name]))
-        lb = max(byts / peak_bw, flops / peak_flops) * 1e3
-        k2["layers"][name] = dict(shape=[d_, fan, f_, o_], ms=lms,
-                                  plain_ms=pms, bound_ms=lb, bytes=byts,
-                                  flops=flops)
-        ms, plain, bound = ms + lms, plain + pms, bound + lb
+        lay = dict(shape=[d_, fan, f_, o_], bytes=byts, flops=flops,
+                   bound_ms=max(byts / peak_bw, flops / peak_flops) * 1e3,
+                   **timed(lambda: ops.fused_gnn_update(*layers[name])),
+                   **timed(lambda: ref.fused_gnn_update(*layers[name]),
+                           "plain_"))
+        k2["layers"][name] = lay
+        for key in sums:
+            sums[key] += lay[key]
         b2_total, fl2_total = b2_total + byts, fl2_total + flops
-    k2.update(max_abs_err=err2, ms=ms, plain_ms=plain, library_ms=None,
-              bound_ms=bound, bytes=b2_total, flops=fl2_total,
+    k2.update(max_abs_err=err2, library_ms=None, library_call_ms=None,
+              bytes=b2_total, flops=fl2_total, **sums,
               bound_by=("bytes" if b2_total / peak_bw >= fl2_total
                         / peak_flops else "operations"))
     out["fused_update"] = k2
@@ -370,26 +476,30 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
             ref.segment_weighted_sum_regular(*ins_r, fan), ins_r, g)
         for i, (a, r) in enumerate(zip(gk, gr)):
             err3 = max(err3, close(a, r, 1e-5, 1e-5, f"K3 grad {name}[{i}]"))
-    ms = plain = lib = bound = 0.0
+    sums = dict.fromkeys(("ms", "call_ms", "plain_ms", "plain_call_ms",
+                          "library_ms", "library_call_ms", "bound_ms"), 0.0)
     b3_total = fl3_total = 0
     for name, (xn, we, fan) in seg.items():
         d_, f_ = xn.shape[0] // fan, xn.shape[1]
         byts = nbytes(xn, we) + d_ * f_ * 4
         flops = 2 * d_ * fan * f_
-        lms = time_ms(lambda: ops.segment_weighted_sum_regular(xn, we, fan))
-        pms = time_ms(lambda: ref.segment_weighted_sum_regular(xn, we, fan))
         # one library call computing the same function: a batched product
         # [D, 1, fanout] x [D, fanout, F]
         w3, x3 = we.view(d_, 1, fan), xn.view(d_, fan, f_)
-        bms = time_ms(lambda: torch.bmm(w3, x3))
-        lb = max(byts / peak_bw, flops / peak_flops) * 1e3
-        k3["layers"][name] = dict(shape=[d_, fan, f_], ms=lms, plain_ms=pms,
-                                  library_ms=bms, bound_ms=lb)
-        ms, plain, lib, bound = ms + lms, plain + pms, lib + bms, bound + lb
+        lay = dict(shape=[d_, fan, f_],
+                   bound_ms=max(byts / peak_bw, flops / peak_flops) * 1e3,
+                   **timed(lambda: ops.segment_weighted_sum_regular(xn, we,
+                                                                    fan)),
+                   **timed(lambda: ref.segment_weighted_sum_regular(xn, we,
+                                                                    fan),
+                           "plain_"),
+                   **timed(lambda: torch.bmm(w3, x3), "library_"))
+        k3["layers"][name] = lay
+        for key in sums:
+            sums[key] += lay[key]
         b3_total, fl3_total = b3_total + byts, fl3_total + flops
-    k3.update(max_abs_err=err3, ms=ms, plain_ms=plain, library_ms=lib,
-              bound_ms=bound, bound_by="bytes", bytes=b3_total,
-              flops=fl3_total)
+    k3.update(max_abs_err=err3, bound_by="bytes", bytes=b3_total,
+              flops=fl3_total, **sums)
     out["segment_sum"] = k3
     out.update(refresh_scatter(trainer, b, peak_bw, dev))
     out["flash_attention"] = flash_kernel(dev, peak_bw)
@@ -427,15 +537,16 @@ def flash_kernel(dev, peak_bw: float) -> dict:
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     flops = 2 * b * hkv * g * d * s * s      # causal: half of 4*B*Hq*D*S^2
     byts = nbytes(q, k, v) + q.numel() * q.element_size()
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, cfg.q_block))
+    t = timed(lambda: ops.flash_attention(q, k, v, cfg.q_block))
+    ms = t["ms"]
     bound_ms = max(byts / peak_bw, flops / BF16_TFLOPS) * 1e3
     return dict(
         name="flash_attention", shape=[b, s, hkv, g, d], dtype="bfloat16",
         max_abs_err=err[str(torch.bfloat16)], max_abs_err_by_dtype=err,
-        ms=ms,
-        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, cfg.q_block)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        **t,
+        **timed(lambda: ref.flash_attention(q, k, v, cfg.q_block), "plain_"),
+        **timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), "library_"),
         bound_ms=bound_ms,
         bound_by=("bytes" if byts / peak_bw >= flops / BF16_TFLOPS
                   else "operations"), bytes=byts, flops=flops,
@@ -470,23 +581,25 @@ def pipelined_and_legacy_combine(cache32, miss32, look, dev, k1_bytes,
                                                             row))),
               f"K7 {dtype} not bit-equal to its plain version")
     n, f = look.slots.shape[0], cache32.shape[1]
-    by_depth = {d: time_ms(lambda: ops.assemble_features(
+    by_depth = {d: timed(lambda: ops.assemble_features(
         cache32, miss32, slots, mi, d)) for d in K4_DEPTHS}
     common = dict(max_abs_err=0.0, shape=[n, f], library_ms=None,
-                  bound_ms=k1_bound, bound_by="bytes", bytes=k1_bytes,
-                  flops=0)
+                  library_call_ms=None, bound_ms=k1_bound, bound_by="bytes",
+                  bytes=k1_bytes, flops=0)
     return {
         "cache_combine_pipelined": dict(
-            name="cache_combine_pipelined", ms=by_depth[K4_DEPTHS[0]],
-            ms_by_depth=by_depth,
-            plain_ms=time_ms(lambda: ref.assemble_features(
-                cache32, miss32, slots, mi)), **common),
+            name="cache_combine_pipelined", **by_depth[K4_DEPTHS[0]],
+            ms_by_depth={d: t["ms"] for d, t in by_depth.items()},
+            call_ms_by_depth={d: t["call_ms"] for d, t in by_depth.items()},
+            **timed(lambda: ref.assemble_features(cache32, miss32, slots, mi),
+                    "plain_"), **common),
         "cache_combine_legacy": dict(
             name="cache_combine_legacy",
-            ms=time_ms(lambda: ops.cache_combine_legacy(cache32, miss32, sel,
-                                                        row)),
-            plain_ms=time_ms(lambda: ref.cache_combine_legacy(
-                cache32, miss32, sel, row)), **common)}
+            **timed(lambda: ops.cache_combine_legacy(cache32, miss32, sel,
+                                                     row)),
+            **timed(lambda: ref.cache_combine_legacy(cache32, miss32, sel,
+                                                     row), "plain_"),
+            **common)}
 
 
 def first_commit(trainer, b: int):
@@ -540,23 +653,23 @@ def refresh_scatter(trainer, b: int, peak_bw: float, dev) -> dict:
     rows_p[:m] = rows32
     out = cache.clone()
     byts = 2 * m * f * 4 + m * 4     # rows read, rows written, slots
-    bound = byts / peak_bw * 1e3
-    plain = time_ms(lambda: ref.cache_update(cache, rows32, slots_t))
-    lib = time_ms(lambda: out.index_copy_(0, slots_l, rows32))
-    res = {}
-    for depth in (1, *K6_DEPTHS):
-        src_rows = rows32 if depth == 1 else rows_p
-        ms = time_ms(lambda: ops.scatter_rows_(out, src_rows, slots_t, depth))
-        res[depth] = ms
+    res = {depth: timed(lambda: ops.scatter_rows_(
+        out, rows32 if depth == 1 else rows_p, slots_t, depth))
+        for depth in (1, *K6_DEPTHS)}
     check(torch.equal(out, ref.cache_update(cache, rows32, slots_t)),
           "timed scatters left a wrong block")
     common = dict(max_abs_err=0.0, rows=m, f=f, bytes=byts, flops=0,
-                  plain_ms=plain, library_ms=lib, bound_ms=bound,
-                  bound_by="bytes")
-    return {"cache_update": dict(name="cache_update", ms=res[1], **common),
+                  bound_ms=byts / peak_bw * 1e3, bound_by="bytes",
+                  **timed(lambda: ref.cache_update(cache, rows32, slots_t),
+                          "plain_"),
+                  **timed(lambda: out.index_copy_(0, slots_l, rows32),
+                          "library_"))
+    return {"cache_update": dict(name="cache_update", **res[1], **common),
             "cache_update_pipelined": dict(
-                name="cache_update_pipelined", ms=res[K6_DEPTHS[0]],
-                ms_by_depth={d: res[d] for d in K6_DEPTHS}, **common)}
+                name="cache_update_pipelined", **res[K6_DEPTHS[0]],
+                ms_by_depth={d: res[d]["ms"] for d in K6_DEPTHS},
+                call_ms_by_depth={d: res[d]["call_ms"] for d in K6_DEPTHS},
+                **common)}
 
 
 def phase_train(tr, iters: int) -> dict:
@@ -694,8 +807,9 @@ def phase_refresh(ds, sage, slice_cfg, dev: torch.device) -> dict:
                 for k, v in runs.items()}
     del runs
 
-    # (d) FeatureCache commits at kernel_pipeline_depth 1, 2 and 4 on the
-    # card: K6 at 2 and 4, each device block bit-equal to depth 1's
+    # (d) FeatureCache commits at kernel_pipeline_depth 1 and each of
+    # K6_DEPTHS on the card: K6 above 1, each device block bit-equal to
+    # depth 1's
     caches = {}
     for depth in (1, *K6_DEPTHS):
         c = build_cache(ds, slice_cfg.cache_fraction)
@@ -1015,7 +1129,8 @@ def main() -> int:
                     help="ogbn-products scale (1.0 = 2,449,029 nodes)")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--out", default=None,
-                    help="directory for the build log (ptxas -v output)")
+                    help="directory for the build log (ptxas -v output) and "
+                    "every phase's JSON line (phases.jsonl)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1031,9 +1146,11 @@ def main() -> int:
     from repro_torch.graph import GNNConfig, make_dataset
     from repro_torch.kernels import build, ops
 
-    env = phase_env()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+        PHASE_LOG.append(os.path.join(args.out, "phases.jsonl"))
+    env = phase_env()
+    if args.out:
         with open(os.path.join(args.out, "chip_smoke_build.log"), "w") as fh:
             json.dump(build.build_report(), fh, indent=1, default=str)
     platform = platform_for_device_name(env["device"])
@@ -1116,6 +1233,8 @@ def main() -> int:
             launches=launches[name], max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
+            call_ms=k["call_ms"], library_call_ms=k["library_call_ms"],
+            plain_call_ms=k["plain_call_ms"], timing=TIMING["method"],
             **{key: k[key] for key in ("tflops", "bound_fraction")
                if key in k}))
     print(env["nvidia_smi"], flush=True)

@@ -25,18 +25,28 @@
 // _cache_combine_pipelined_kernel), the TPU combine that keeps `depth` (2..4)
 // windows in VMEM and starts each window's DMA `depth` tiles ahead.  Its
 // function is K1's; its window and one-hot product are dropped for K1's
-// reasons.  What it keeps is the copy ring: a persistent grid of at most four
-// blocks per SM walks 8-row output blocks, one warp per output row.  Each
-// warp reads its row's two table entries and cp.asyncs the source row (from
-// the cache or the miss block) into ring slot k % depth; one commit group per
-// output block, empty past the end, so `__pipeline_wait_prior(depth - 1)`
-// always means "block k has landed".  The block then writes its 8 rows to
-// `out`, which are contiguous there, as one coalesced copy, while the gathers
-// of the next depth - 1 blocks are in flight.  The ring needs depth * 8 * row
-// bytes of shared memory (12.8 KB at depth 4 for 100 f32 features); the
-// wrapper refuses a ring over 227 KB and the launcher opts in above 48 KB.
-// cp.async copies 4, 8 or 16 bytes, so units below 4 bytes (odd bf16 rows)
-// are staged with plain loads.  Bit-equal to K1 at every depth.
+// reasons.  What it keeps is the copy ring, here Hopper's bulk-copy engine
+// (tma.cuh) feeding a ring of `depth` stages of 32 output rows, each stage
+// with a full and an empty mbarrier.  A persistent grid (as many CTAs an SM
+// as the ring leaves room for) walks the stages blockIdx.x, +gridDim.x, ...
+// Each CTA is two warps.  In the loader warp, lane r loads row r's two
+// table entries together (K1 reads miss_index only after slots, a
+// dependent load) and issues one cp.async.bulk of its source row, from the
+// cache or the miss block, into the stage, completing on the stage's full
+// barrier.  One storer thread waits for the stage and writes its rows,
+// which are contiguous in `out`, with one cp.async.bulk store; once the
+// store of the stage before has read shared memory it releases that stage's
+// empty barrier.  No thread moves a row through registers and no
+// __syncthreads sits in the loop.  This bulk route needs rows of a
+// multiple of 16 bytes and 16-byte aligned bases (the main path's 400-B
+// f32 rows).  Other rows take the cp.async route: one warp per output row
+// of 8-row blocks cp.asyncs its source row into ring slot k % depth; one
+// commit group per block, empty past the end, so
+// `__pipeline_wait_prior(depth - 1)` always means "block k has landed",
+// and the block then writes its 8 rows as one coalesced copy.  cp.async
+// copies 4, 8 or 16 bytes, so units below 4 bytes (odd bf16 rows) are
+// staged with plain loads.  The wrapper refuses a ring over 227 KB.
+// Bit-equal to K1 at every depth.
 //
 // K7 replaces cache_combine_kernel_call (body _cache_combine_kernel), the
 // legacy one-row-per-grid-step combine with the (sel, row) tables:
@@ -47,14 +57,18 @@
 // It lies on no path of the trainer (the reference keeps it as a parity
 // baseline) and is K1's warp-per-row copy with the other table contract.
 #include "common.cuh"
+#include "tma.cuh"
 
 #include <cuda_pipeline.h>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;  // K1, K7: output rows per block
-constexpr int kRowBlock = 8;       // K4: output rows per staged block
+constexpr int kRowBlock = 8;       // K4 cp.async route: rows per block
 constexpr int kMaxBlocksPerSm = 4;
+constexpr int kStageRows = 32;     // K4 bulk route: rows per stage, a lane each
+constexpr int kBulkThreads = 64;   // a loader warp and a storer warp
+constexpr int64_t kMaxRing = 232448;  // shared memory a block may use
 
 template <typename V>
 __device__ __forceinline__ const V* source_row(
@@ -133,6 +147,70 @@ combine_rows_pipelined_kernel(const V* __restrict__ cache,
   }
 }
 
+__global__ void __launch_bounds__(kBulkThreads)
+combine_rows_bulk_kernel(const unsigned char* __restrict__ cache,
+                         const unsigned char* __restrict__ miss,
+                         const int32_t* __restrict__ slots,
+                         const int32_t* __restrict__ miss_index,
+                         unsigned char* __restrict__ out, int64_t n,
+                         int64_t n_stages, int64_t row_bytes, int depth) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  const int64_t stage_bytes = kStageRows * row_bytes;  // a multiple of 16
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + depth * stage_bytes);
+  uint64_t* empty = full + depth;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(&full[s], 1);    // lane 0's expect_tx arrival
+      mbar_init(&empty[s], 1);   // the storer's release
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  const int64_t n_mine = blockIdx.x < n_stages
+                             ? (n_stages - 1 - blockIdx.x) / gridDim.x + 1
+                             : 0;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x < 32) {  // the loader warp: lane r gathers row r
+    for (int64_t k = 0; k < n_mine; ++k) {
+      const int s = static_cast<int>(k % depth);
+      if (k >= depth) mbar_wait(&empty[s], ((k / depth) - 1) & 1);
+      const int64_t row0 = (blockIdx.x + k * gridDim.x) * kStageRows;
+      const int64_t rows = n - row0 < kStageRows ? n - row0 : kStageRows;
+      // the tx count may run below zero until this arrival: the phase
+      // completes only once lane 0 has arrived and every byte has landed
+      if (lane == 0)
+        mbar_arrive_expect_tx(&full[s],
+                              static_cast<uint32_t>(rows * row_bytes));
+      if (lane < rows) {
+        const int64_t row = row0 + lane;
+        const int32_t slot = slots[row];  // both entries in flight at once
+        const int32_t mi = miss_index[row];
+        const unsigned char* src =
+            (slot >= 0 && cache != nullptr)
+                ? cache + static_cast<int64_t>(slot) * row_bytes
+                : miss + static_cast<int64_t>(mi) * row_bytes;
+        bulk_load(ring + s * stage_bytes + lane * row_bytes, src,
+                  static_cast<uint32_t>(row_bytes), &full[s]);
+      }
+    }
+  } else if (threadIdx.x == 32) {  // the storer
+    for (int64_t k = 0; k < n_mine; ++k) {
+      const int s = static_cast<int>(k % depth);
+      mbar_wait(&full[s], (k / depth) & 1);
+      const int64_t row0 = (blockIdx.x + k * gridDim.x) * kStageRows;
+      const int64_t rows = n - row0 < kStageRows ? n - row0 : kStageRows;
+      bulk_store(out + row0 * row_bytes, ring + s * stage_bytes,
+                 static_cast<uint32_t>(rows * row_bytes));
+      bulk_commit();
+      // the previous stage's store has read shared memory: release it
+      bulk_wait_read<1>();
+      if (k > 0) mbar_arrive(&empty[(k - 1) % depth]);
+    }
+    bulk_wait<0>();  // every store has written out
+  }
+}
+
 template <typename V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 combine_legacy_kernel(const V* __restrict__ cache, const V* __restrict__ miss,
@@ -188,6 +266,32 @@ cudaError_t launch_pipelined(const void* cache, const void* miss,
   return cudaGetLastError();
 }
 
+cudaError_t launch_bulk(const void* cache, const void* miss,
+                        const int32_t* slots, const int32_t* miss_index,
+                        void* out, int64_t n, int64_t row_bytes, int depth,
+                        cudaStream_t stream) {
+  const int64_t smem = depth * (kStageRows * row_bytes + 16);
+  cudaError_t err = cudaFuncSetAttribute(
+      combine_rows_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, combine_rows_bulk_kernel, kBulkThreads,
+      static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t n_stages = ceil_div(n, kStageRows);
+  int64_t grid = 0;
+  err = persistent_grid(n_stages, per_sm > 0 ? per_sm : 1, &grid);
+  if (err != cudaSuccess) return err;
+  combine_rows_bulk_kernel<<<static_cast<unsigned>(grid), kBulkThreads,
+                             static_cast<size_t>(smem), stream>>>(
+      static_cast<const unsigned char*>(cache),
+      static_cast<const unsigned char*>(miss), slots, miss_index,
+      static_cast<unsigned char*>(out), n, n_stages, row_bytes, depth);
+  return cudaGetLastError();
+}
+
 template <typename V>
 cudaError_t launch_legacy(const void* cache, const void* miss,
                           const int32_t* sel, const int32_t* row_of,
@@ -222,8 +326,12 @@ int combine_pipelined(const void* cache, const void* miss,
   if (depth < 2 || depth > 4) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || row_bytes <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = as_stream(stream);
+  const int64_t unit_bytes = copy_unit(row_bytes, out, cache, miss);
+  if (unit_bytes == 16 && depth * (kStageRows * row_bytes + 16) <= kMaxRing)
+    return static_cast<int>(launch_bulk(cache, miss, slots, miss_index, out,
+                                        n, row_bytes, depth, st));
   return static_cast<int>(
-      with_unit(copy_unit(row_bytes, out, cache, miss), [&](auto unit) {
+      with_unit(unit_bytes, [&](auto unit) {
         using V = decltype(unit);
         switch (depth) {
           case 2:

@@ -81,12 +81,14 @@ def _bits(t):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [100, 7])
+@pytest.mark.parametrize("f", [100, 7, 32])
 @pytest.mark.parametrize("depth", [2, 3, 4])
 def test_pipelined_combine_bit_equal_to_k1(cuda, dtype, f, depth):
     """K4 against K1 and the plain version, bit for bit, with -0.0, a
     denormal and a NaN payload in the sources and a ragged last block;
-    also with no cache and with an empty miss block."""
+    also with no cache and with an empty miss block.  Rows of a multiple
+    of 16 bytes (f32 at 100 and 32, bf16 at 32) take the bulk-copy route,
+    the others the cp.async route."""
     rng = np.random.default_rng(depth * 7 + f)
     k, m, n = 700, 300, 5003
     cache = torch.from_numpy(rng.standard_normal((k, f)).astype(
@@ -227,7 +229,9 @@ def test_segment_sum_matches_plain(cuda, dtype, d, fanout, f):
 
 @pytest.mark.parametrize("d,fanout,f,o", [(9000, 10, 100, 256),
                                           (300, 25, 256, 47),
-                                          (50, 3, 33, 300)])
+                                          (50, 3, 33, 300),
+                                          (18304, 10, 100, 256),
+                                          (704, 25, 256, 47)])
 def test_fused_layer_and_grads_match_plain(cuda, d, fanout, f, o):
     gen = torch.Generator().manual_seed(o)
     args = [_randn(gen, d, f, device=cuda),
@@ -247,6 +251,27 @@ def test_fused_layer_and_grads_match_plain(cuda, d, fanout, f, o):
     kb = torch.autograd.grad(ref.fused_gnn_update(*ins, fanout), ins, g)
     for x, y in zip(ka, kb):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_layer_unaligned_views_on_card(cuda):
+    """x_self and x_nbr one float off a 16-byte boundary take K2's
+    plain-load route; their aligned copies take the ring route; both agree
+    with the plain version within 1e-4."""
+    d, fanout, f, o = 2000, 10, 100, 256
+    gen = torch.Generator().manual_seed(11)
+    xs = _randn(gen, d * f + 1, device=cuda)[1:].view(d, f)
+    xn = _randn(gen, d * fanout * f + 1, device=cuda)[1:].view(d * fanout,
+                                                                f)
+    rest = [torch.rand(d * fanout, generator=gen).to(cuda),
+            torch.rand(d, generator=gen).to(cuda),
+            _randn(gen, f, o, device=cuda) / f ** 0.5,
+            _randn(gen, f, o, device=cuda) / f ** 0.5,
+            _randn(gen, o, device=cuda)]
+    assert xs.data_ptr() % 16 and xn.data_ptr() % 16
+    want = ref.fused_gnn_update(xs, xn, *rest, fanout)
+    for a, b in ((xs, xn), (xs.clone(), xn.clone())):
+        torch.testing.assert_close(ops.fused_gnn_update(a, b, *rest, fanout),
+                                   want, rtol=1e-4, atol=1e-4)
 
 
 def test_refresh_on_card_bit_identical_and_launches_k5(cuda):

@@ -35,8 +35,11 @@ from repro_torch.kernels import build, ops, ref
 
 CUDA_RUNTIME_H = r"""
 #pragma once
+#include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstddef>
+#include <memory>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -46,11 +49,12 @@ CUDA_RUNTIME_H = r"""
 #define __host__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __align__(n) alignas(n)
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorLaunchTimeout = 702, cudaErrorMisalignedAddress = 716 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -58,15 +62,22 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
   *v = 2; return 0; }
 template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) {
   return 0; }
+template <class T> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, T, int, size_t) { *n = 2; return 0; }
 typedef struct CUstream_st* cudaStream_t;
 struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
+inline thread_local std::barrier<>* emu_warp_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
-inline cudaError_t cudaGetLastError() { return 0; }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_barrier->arrive_and_wait(); }
+// an error a kernel raised (tma.cuh's emulation: a wait past its time
+// limit, a misaligned bulk copy), returned by the next cudaGetLastError
+inline std::atomic<int> emu_error{0};
+inline cudaError_t cudaGetLastError() { return emu_error.exchange(0); }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
@@ -94,13 +105,18 @@ template <class F> void emu_launch(dim3 grid, dim3 block, F f) {
   for (unsigned bx = 0; bx < grid.x; ++bx) {
     std::barrier<> bar(nt);
     emu_barrier = &bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warps;  // __syncwarp's
+    for (unsigned w = 0; 32 * w < nt; ++w)
+      warps.emplace_back(new std::barrier<>(std::min(32u, nt - 32 * w)));
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < nt; ++t)
       ts.emplace_back([&, t] {
         blockIdx = dim3(bx, by, bz);
         threadIdx = dim3(t % block.x, (t / block.x) % block.y,
                          t / (block.x * block.y));
+        emu_warp_barrier = warps[t / 32].get();
         f();
+        emu_warp_barrier->arrive_and_drop();
         bar.arrive_and_drop();
       });
     for (auto& th : ts) th.join();
@@ -201,6 +217,108 @@ inline uint32_t pack_bf16x2(float lo, float hi) {
          uint32_t(__float2bfloat16_rn(hi).x) << 16; }
 """
 
+# tma.cuh's primitives as the PTX ISA defines them.  An mbarrier keeps,
+# in its 8 bytes, a pending-arrival count, the expected count, a signed tx
+# count and the phase bit; a phase completes when no arrival is pending and
+# the tx count is zero, and then the barrier moves to the next phase with
+# its pending count reset.  mbar_arrive_warp is __syncwarp (a barrier of the
+# warp's threads here) and one arrival by lane 0.  try_wait.parity(p) is true once the phase of
+# parity p has completed (the current phase's parity differs from p).  Bulk
+# copies are synchronous memcpys that complete their bytes on the barrier;
+# a misaligned one sets an error.  A wait spins for at most
+# EMU_WAIT_SECONDS; past it (a wrong parity, a lost arrival) it sets an
+# error that the C entry point returns, so the wrapper raises instead of
+# the test hanging, and every later wait of the launch returns at once.
+TMA_H = r"""
+#pragma once
+#include <atomic>
+#include <chrono>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include "cuda_runtime.h"
+#ifndef EMU_WAIT_SECONDS
+#define EMU_WAIT_SECONDS 20
+#endif
+struct EmuMbar { int64_t pending, expected, tx; uint64_t phase; };
+inline EmuMbar emu_unpack(uint64_t v) {
+  EmuMbar b;
+  b.pending = int64_t(v & 0x1FFFFF);
+  b.expected = int64_t((v >> 21) & 0x1FFFFF);
+  b.tx = int64_t((v >> 42) & 0x1FFFFF);
+  if (b.tx & 0x100000) b.tx -= 0x200000;       // signed 21 bits
+  b.phase = v >> 63;
+  return b;
+}
+inline uint64_t emu_pack(const EmuMbar& b) {
+  return uint64_t(b.pending & 0x1FFFFF) |
+         uint64_t(b.expected & 0x1FFFFF) << 21 |
+         uint64_t(b.tx & 0x1FFFFF) << 42 | b.phase << 63;
+}
+template <class F> inline void emu_mbar_update(uint64_t* bar, F f) {
+  std::atomic_ref<uint64_t> a(*bar);
+  uint64_t old = a.load();
+  for (;;) {
+    EmuMbar b = emu_unpack(old);
+    f(b);
+    if (b.pending < 0) { emu_error = cudaErrorInvalidValue; return; }
+    if (b.pending == 0 && b.tx == 0) {
+      b.phase ^= 1;
+      b.pending = b.expected;
+    }
+    if (a.compare_exchange_weak(old, emu_pack(b))) return;
+  }
+}
+inline void mbar_init(uint64_t* bar, uint32_t count) {
+  std::atomic_ref<uint64_t>(*bar).store(
+      emu_pack(EmuMbar{int64_t(count), int64_t(count), 0, 0}));
+}
+inline void fence_mbarrier_init() {}
+inline void mbar_arrive(uint64_t* bar) {
+  emu_mbar_update(bar, [](EmuMbar& b) { b.pending -= 1; });
+}
+inline void mbar_arrive_warp(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  emu_mbar_update(bar, [&](EmuMbar& b) { b.tx += bytes; b.pending -= 1; });
+}
+inline bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  return emu_unpack(std::atomic_ref<uint64_t>(*bar).load()).phase != parity;
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const auto limit = std::chrono::steady_clock::now() +
+                     std::chrono::seconds(EMU_WAIT_SECONDS);
+  while (!mbar_try_wait(bar, parity)) {
+    if (emu_error.load()) return;
+    if (std::chrono::steady_clock::now() > limit) {
+      emu_error = cudaErrorLaunchTimeout;
+      return;
+    }
+    std::this_thread::yield();
+  }
+}
+inline bool emu_bulk_ok(const void* a, const void* b, uint32_t bytes) {
+  const bool ok = (uintptr_t(a) | uintptr_t(b) | bytes) % 16 == 0;
+  if (!ok) emu_error = cudaErrorMisalignedAddress;
+  return ok;
+}
+inline void bulk_load(void* dst, const void* src, uint32_t bytes,
+                      uint64_t* bar) {
+  if (!emu_bulk_ok(dst, src, bytes)) return;
+  std::memcpy(dst, src, bytes);
+  emu_mbar_update(bar, [&](EmuMbar& b) { b.tx -= bytes; });
+}
+inline void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  if (emu_bulk_ok(dst, src, bytes)) std::memcpy(dst, src, bytes);
+}
+inline void bulk_commit() {}
+inline void fence_proxy_async() {}
+template <int N> inline void bulk_wait_read() {}
+template <int N> inline void bulk_wait() {}
+"""
+
 CUDA_PIPELINE_H = r"""
 #pragma once
 #include <cstddef>
@@ -234,6 +352,7 @@ def _write_headers(out):
     (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
     (out / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
     (out / "mma.cuh").write_text(MMA_H)
+    (out / "tma.cuh").write_text(TMA_H)
     shutil.copy(build.CSRC / "common.cuh", out / "common.cuh")
 
 
@@ -363,6 +482,23 @@ def test_emulated_legacy_combine_bit_equal(emulated_ops, dtype, f):
     assert torch.equal(_bits(got), _bits(want))
 
 
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 100),
+                                     (torch.bfloat16, 32)])
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_emulated_combine_bulk_ring_wraps(emulated_ops, dtype, f, depth):
+    """K4's bulk-copy route (rows of a multiple of 16 bytes: 400-B f32 and
+    64-B bf16) over n = 2,003 rows: 63 stages of 32 rows on 4 emulated
+    CTAs, so every CTA's ring wraps at every depth and the last stage is
+    ragged.  Bit-equal to the plain combine."""
+    for case in ("mixed", "no_cache", "all_hit"):
+        cache, miss, slots, mi = _combine_inputs(dtype, f, case, n=2003,
+                                                 seed=depth)
+        want = ref.assemble_features(cache, miss, torch.from_numpy(slots),
+                                     torch.from_numpy(mi))
+        got = emulated_ops.assemble_features(cache, miss, slots, mi, depth)
+        assert torch.equal(_bits(got), _bits(want)), case
+
+
 def test_emulated_gather_rows_and_ring_budget(emulated_ops):
     block = torch.randn(30, 12)
     slots = np.array([3, 0, 29, 3, 7], np.int32)
@@ -403,7 +539,8 @@ def test_emulated_segment_sum(emulated_ops, dtype, d, fanout, f):
     (37, 5, 100, 47),        # layer-2 widths
     (20, 3, 7, 5),           # everything ragged
     (9, 4, 33, 300),         # two column tiles
-    (8448, 2, 20, 40)])      # enough rows for the tall-tile variant
+    (8448, 2, 20, 40),       # enough rows for the tall-tile variant
+    (20, 25, 256, 47)])      # layer-2 slabs: the ring wraps, a tail tile
 @pytest.mark.parametrize("bias", [True, False])
 def test_emulated_fused_layer(emulated_ops, d, fanout, f, o, bias):
     g = torch.Generator().manual_seed(o)
@@ -416,6 +553,28 @@ def test_emulated_fused_layer(emulated_ops, d, fanout, f, o, bias):
     got = emulated_ops.fused_gnn_update(xs, xn, we, ss, ws, wa, b, fanout)
     want = ref.fused_gnn_update(xs, xn, we, ss, ws, wa, b, fanout)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_emulated_fused_layer_unaligned_views(emulated_ops):
+    """x_self and x_nbr as views one float off a 16-byte boundary take K2's
+    plain-load route (the ring bulk-copies whole rows) and give what the
+    aligned copies give through the ring, within 1e-4 of the plain
+    version."""
+    d, fanout, f, o = 40, 6, 100, 47
+    g = torch.Generator().manual_seed(3)
+    xs = torch.randn(d * f + 1, generator=g)[1:].view(d, f)
+    xn = torch.randn(d * fanout * f + 1, generator=g)[1:].view(d * fanout, f)
+    we, ss = torch.rand(d * fanout, generator=g), torch.rand(d, generator=g)
+    ws = torch.randn(f, o, generator=g) / f ** 0.5
+    wa = torch.randn(f, o, generator=g) / f ** 0.5
+    b = torch.randn(o, generator=g)
+    assert xs.data_ptr() % 16 and xn.data_ptr() % 16
+    got = emulated_ops.fused_gnn_update(xs, xn, we, ss, ws, wa, b, fanout)
+    ring = emulated_ops.fused_gnn_update(xs.clone(), xn.clone(), we, ss, ws,
+                                         wa, b, fanout)
+    want = ref.fused_gnn_update(xs, xn, we, ss, ws, wa, b, fanout)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ring, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -592,3 +751,63 @@ def test_emulated_mma_ldmatrix_layouts_match_numpy(tmp_path):
     lib.mma_layout(*(t.data_ptr() for t in (*ts, dk, dv)))
     np.testing.assert_array_equal(dk.numpy(), a @ bk.T)
     np.testing.assert_array_equal(dv.numpy(), a @ bv)
+
+
+# One wait on tma.cuh's emulated mbarrier after a bulk copy completed its
+# phase 0: waiting again on parity 0 passes at once, on parity 1 (a phase
+# that never completes) it must time out and the entry point return an
+# error; a bulk copy off a 16-byte boundary returns an error too.
+_TMA_PROBE_CU = r"""
+#include "common.cuh"
+#include "tma.cuh"
+namespace {
+__global__ void probe_kernel(const unsigned char* src, unsigned char* dst,
+                             int parity) {
+  __align__(16) __shared__ unsigned char buf[64];
+  __align__(8) __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 64);
+    bulk_load(buf, src, 64, &bar);
+  }
+  mbar_wait(&bar, 0);
+  mbar_wait(&bar, parity);
+  for (int i = threadIdx.x; i < 64; i += 32) dst[i] = buf[i];
+}
+}  // namespace
+REPRO_API int tma_probe(const void* src, void* dst, int parity) {
+  probe_kernel<<<1, 32>>>(static_cast<const unsigned char*>(src),
+                          static_cast<unsigned char*>(dst), parity);
+  return cudaGetLastError();
+}
+"""
+
+
+def test_emulated_tma_wrong_parity_times_out(tmp_path):
+    """The emulated try_wait.parity follows the PTX ISA (a completed phase
+    of parity 0 passes, the pending phase of parity 1 does not) and a wait
+    past its limit (1 s here) makes the launch return an error instead of
+    hanging; a misaligned bulk copy returns an error."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the "
+                    "CUDA sources")
+    _write_headers(tmp_path)
+    (tmp_path / "tma.cuh").write_text(TMA_H.replace(
+        "#ifndef EMU_WAIT_SECONDS", "#define EMU_WAIT_SECONDS 1\n"
+        "#ifndef EMU_WAIT_SECONDS"))
+    lib = ctypes.CDLL(str(_compile(cxx, tmp_path, "tma_probe",
+                                   _TMA_PROBE_CU)))
+    lib.tma_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_int]
+    lib.tma_probe.restype = ctypes.c_int
+    src = torch.arange(80, dtype=torch.uint8)
+    dst = torch.zeros(64, dtype=torch.uint8)
+    assert lib.tma_probe(src.data_ptr(), dst.data_ptr(), 0) == 0
+    assert torch.equal(dst, src[:64])
+    assert lib.tma_probe(src.data_ptr(), dst.data_ptr(), 1) == 702
+    assert lib.tma_probe(src.data_ptr() + 1, dst.data_ptr(), 0) == 716
