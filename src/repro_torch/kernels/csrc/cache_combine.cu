@@ -14,12 +14,30 @@
 // positions by source rank and expanded a 4W-row VMEM window through a
 // one-hot MXU product.  Here a 4x128x128 f32 window would not fit one SM's
 // shared memory, and the one-hot product is exact only for finite values, so
-// the design is a direct row gather instead: one warp per output row reads
-// its two table entries itself and copies the row with the widest vector
-// unit (16, 8, 4, 2 or 1 bytes) that divides the row and every base
-// pointer.  The copy is bitwise, so the result is bit-equal to the plain
-// version for any dtype; the f32 and bf16 entry points differ only in the
-// element size.
+// the design is a direct row gather instead, in the widest copy unit (16,
+// 8, 4, 2 or 1 bytes) that divides the row and every base pointer.  The
+// copy is bitwise, so the result is bit-equal to the plain version for any
+// dtype; the f32 and bf16 entry points differ only in the element size.
+//
+// K1 moves rows through registers, and what held its first design (a warp
+// per row) under half its bound was latency and idle lanes, not the bytes:
+// a row waited on its slot, then on its miss index (a dependent load), then
+// on its row, with a few rows a warp in flight, and a 25-unit f32 row of
+// width 100 left 7 of 32 lanes idle.  So a warp now takes a group of 32
+// output rows.  Lane r loads row r's slot and miss index together (two
+// coalesced loads, one latency) and forms its source address, which
+// __shfl_sync hands to the lane that copies each unit.  The group's
+// 32 * units copy units are one contiguous run of `out`, dealt over the
+// 32 lanes, so no lane idles, and each lane keeps kCopyDepth independent
+// loads in flight: a unit's store frees its register for the load
+// kCopyDepth units on.  The output (80.5 MB on the main path) outgrows the
+// 50 MB L2 while the distinct source rows (about 30 MB, each read 2.65
+// times on average) fit, so the loads keep source lines in L2 (evict_last,
+// no L1 allocation) and the stores stream (evict-first): ldst.cuh.  One
+// group a warp; whole warps leave the loop together, so every lane reaches
+// every shuffle, and the ragged last group masks its missing rows.  On an
+// H100 this moves its bound's bytes at about 90 % of the rate the card
+// copies a contiguous tensor of the output's size (PERF.md).
 //
 // K4 replaces cache_combine_pipelined_kernel_call (body
 // _cache_combine_pipelined_kernel), the TPU combine that keeps `depth` (2..4)
@@ -30,18 +48,17 @@
 // with a full and an empty mbarrier.  A persistent grid (as many CTAs an SM
 // as the ring leaves room for) walks the stages blockIdx.x, +gridDim.x, ...
 // Each CTA is two warps.  In the loader warp, lane r loads row r's two
-// table entries together (K1 reads miss_index only after slots, a
-// dependent load) and issues one cp.async.bulk of its source row, from the
-// cache or the miss block, into the stage, completing on the stage's full
-// barrier.  One storer thread waits for the stage and writes its rows,
-// which are contiguous in `out`, with one cp.async.bulk store; once the
-// store of the stage before has read shared memory it releases that stage's
-// empty barrier.  No thread moves a row through registers and no
-// __syncthreads sits in the loop.  This bulk route needs rows of a
-// multiple of 16 bytes and 16-byte aligned bases (the main path's 400-B
-// f32 rows).  Other rows take the cp.async route: one warp per output row
-// of 8-row blocks cp.asyncs its source row into ring slot k % depth; one
-// commit group per block, empty past the end, so
+// table entries together, as K1 does, and issues one cp.async.bulk of its
+// source row, from the cache or the miss block, into the stage, completing
+// on the stage's full barrier.  One storer thread waits for the stage and
+// writes its rows, which are contiguous in `out`, with one cp.async.bulk
+// store; once the store of the stage before has read shared memory it
+// releases that stage's empty barrier.  No thread moves a row through
+// registers and no __syncthreads sits in the loop.  This bulk route needs
+// rows of a multiple of 16 bytes and 16-byte aligned bases (the main
+// path's 400-B f32 rows).  Other rows take the cp.async route: one warp
+// per output row of 8-row blocks cp.asyncs its source row into ring slot
+// k % depth; one commit group per block, empty past the end, so
 // `__pipeline_wait_prior(depth - 1)` always means "block k has landed",
 // and the block then writes its 8 rows as one coalesced copy.  cp.async
 // copies 4, 8 or 16 bytes, so units below 4 bytes (odd bf16 rows) are
@@ -55,15 +72,19 @@
 //            miss[row[i]]    otherwise
 //
 // It lies on no path of the trainer (the reference keeps it as a parity
-// baseline) and is K1's warp-per-row copy with the other table contract.
+// baseline) and is a warp-per-row copy with the other table contract.
 #include "common.cuh"
+#include "ldst.cuh"
 #include "tma.cuh"
 
 #include <cuda_pipeline.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;  // K1, K7: output rows per block
+constexpr int kWarpsPerBlock = 8;  // K7: output rows per block
+constexpr int kGroupRows = 32;     // K1: output rows per warp, a lane each
+constexpr int kGroupWarps = 8;     // K1: warps per block
+constexpr int kCopyDepth = 8;      // K1: copy units a lane has in flight
 constexpr int kRowBlock = 8;       // K4 cp.async route: rows per block
 constexpr int kMaxBlocksPerSm = 4;
 constexpr int kStageRows = 32;     // K4 bulk route: rows per stage, a lane each
@@ -81,18 +102,69 @@ __device__ __forceinline__ const V* source_row(
 }
 
 template <typename V>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kGroupWarps * 32)
 combine_rows_kernel(const V* __restrict__ cache, const V* __restrict__ miss,
                     const int32_t* __restrict__ slots,
                     const int32_t* __restrict__ miss_index,
-                    V* __restrict__ out, int64_t n, int64_t units) {
+                    V* __restrict__ out, int64_t n, int64_t n_groups,
+                    int units) {
   const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const V* src = source_row(cache, miss, slots, miss_index, row, units);
-  V* dst = out + row * units;
-  for (int64_t u = lane; u < units; u += 32) dst[u] = __ldg(src + u);
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kGroupWarps;
+  const uint64_t keep = l2_evict_last_policy();
+  // unit e of a group lies in its row e / units at column e % units; a
+  // lane's next unit (e + 32) is row_step rows and col_step columns on
+  const int row_step = 32 / units;
+  const int col_step = 32 % units;
+  // the loop bound is the warp's, so whole warps leave together and every
+  // lane reaches every shuffle
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kGroupWarps +
+                   (threadIdx.x >> 5);
+       g < n_groups; g += warps) {
+    const int64_t row0 = g * kGroupRows;
+    const int rows =
+        n - row0 < kGroupRows ? static_cast<int>(n - row0) : kGroupRows;
+    // lane r reads row r's two table entries, both loads in flight at
+    // once; the ragged last group masks its missing rows
+    unsigned long long src = 0;
+    if (lane < rows) {
+      const int32_t s = slots[row0 + lane];
+      const int32_t m = miss_index[row0 + lane];
+      src = reinterpret_cast<unsigned long long>(
+          (s >= 0 && cache != nullptr)
+              ? cache + static_cast<int64_t>(s) * units
+              : miss + static_cast<int64_t>(m) * units);
+    }
+    // the group's rows are contiguous in out: its rows * units units are
+    // one run, dealt over the 32 lanes.  A lane keeps a window of
+    // kCopyDepth loads in flight: once unit e is stored, the load of unit
+    // e + 32 * kCopyDepth takes its register.
+    V* dst = out + row0 * units;
+    const int total = rows * units;
+    int r = lane / units;
+    int c = lane % units;
+    auto fetch = [&](V& slot, int e) {
+      const V* row = reinterpret_cast<const V*>(
+          __shfl_sync(0xffffffffu, src, r & 31));
+      if (e < total) slot = load_reused(row + c, keep);
+      r += row_step;
+      c += col_step;
+      if (c >= units) {
+        c -= units;
+        ++r;
+      }
+    };
+    V buf[kCopyDepth];
+#pragma unroll
+    for (int j = 0; j < kCopyDepth; ++j) fetch(buf[j], j * 32 + lane);
+    for (int e0 = 0; e0 < total; e0 += 32 * kCopyDepth) {
+#pragma unroll
+      for (int j = 0; j < kCopyDepth; ++j) {
+        const int e = e0 + j * 32 + lane;
+        if (e < total) store_streaming(dst + e, buf[j]);
+        fetch(buf[j], e + 32 * kCopyDepth);
+      }
+    }
+  }
 }
 
 template <typename V, int kDepth>
@@ -232,11 +304,13 @@ cudaError_t launch(const void* cache, const void* miss, const int32_t* slots,
                    const int32_t* miss_index, void* out, int64_t n,
                    int64_t row_bytes, cudaStream_t stream) {
   const int64_t units = row_bytes / static_cast<int64_t>(sizeof(V));
-  const int64_t blocks = ceil_div(n, kWarpsPerBlock);
-  combine_rows_kernel<V><<<static_cast<unsigned>(blocks),
-                           kWarpsPerBlock * 32, 0, stream>>>(
+  if (units > INT32_MAX / kGroupRows) return cudaErrorInvalidValue;
+  const int64_t groups = ceil_div(n, kGroupRows);
+  const int64_t blocks = ceil_div(groups, kGroupWarps);  // a group a warp
+  combine_rows_kernel<V><<<static_cast<unsigned>(blocks), kGroupWarps * 32,
+                           0, stream>>>(
       static_cast<const V*>(cache), static_cast<const V*>(miss), slots,
-      miss_index, static_cast<V*>(out), n, units);
+      miss_index, static_cast<V*>(out), n, groups, static_cast<int>(units));
   return cudaGetLastError();
 }
 

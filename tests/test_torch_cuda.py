@@ -119,6 +119,95 @@ def test_pipelined_combine_bit_equal_to_k1(cuda, dtype, f, depth):
         assert torch.equal(_bits(k4), _bits(want))
 
 
+def _k1_case(cuda, dtype, f, case, n, k=90, m=37, seed=0):
+    """K1's inputs on the card: a cache and a miss block whose first rows
+    hold -0.0, a denormal and NaNs with payloads of their own, and index
+    tables for ``case``: "mixed", "no_cache" (every slot -1), "all_hit"
+    (a peer gather: every slot hits, the miss block is empty) and
+    "misaligned" (mixed, both blocks views one element off a 16-byte
+    boundary, so K1 copies in a narrower unit)."""
+    rng = np.random.default_rng(seed * 1000 + n * 10 + f)
+    ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    off = 1 if case == "misaligned" else 0
+    special = torch.tensor([0x8000, 0x0001, 0x7FC5, 0xFFA1] if dtype ==
+                           torch.bfloat16 else
+                           [-2 ** 31, 0x00000001, 0x7FC01234, -0x5FEDCC],
+                           dtype=torch.int32).to(ibits)
+
+    def block(rows):
+        x = torch.from_numpy(rng.standard_normal(rows * f + off).astype(
+            np.float32)).to(dtype)
+        flat = x[off:].view(ibits)
+        flat[:special.numel()] = special[:flat.numel()]
+        return x.to(cuda)[off:].view(rows, f)
+
+    cache, miss = block(k), block(m)
+    slots = rng.integers(-1, k, n).astype(np.int32)
+    slots[:4] = [0, -1, 0, -1]
+    if case == "no_cache":
+        cache, slots = None, np.full(n, -1, np.int32)
+    mi = np.where(slots < 0, rng.integers(0, m, n), 0).astype(np.int32)
+    mi[:4] = 0
+    if case == "all_hit":
+        slots, mi, miss = np.abs(slots), np.zeros(n, np.int32), miss[:0]
+    return (cache, miss, torch.from_numpy(slots).to(cuda),
+            torch.from_numpy(mi).to(cuda))
+
+
+def _k1_against_plain_and_k4(cache, miss, slots, mi, gather):
+    """One K1 call (through ``gather_rows`` when ``gather``), counted once,
+    bit-equal to the plain combine and to K4 at depths 2-4."""
+    before = ops.kernel_launches()
+    got = (ops.gather_rows(cache, slots) if gather else
+           ops.assemble_features(cache, miss, slots, mi))
+    torch.cuda.synchronize()
+    after = ops.kernel_launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == "cache_combine") for k in after}
+    want = _bits(ref.assemble_features(cache, miss, slots, mi))
+    assert torch.equal(_bits(got), want)
+    for depth in (2, 3, 4):
+        k4 = (ops.gather_rows(cache, slots, depth) if gather else
+              ops.assemble_features(cache, miss, slots, mi, depth))
+        assert torch.equal(_bits(k4), want), depth
+
+
+@pytest.mark.parametrize("case", ["mixed", "no_cache", "all_hit",
+                                  "misaligned"])
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 1),
+                                     (torch.float32, 47),
+                                     (torch.float32, 100),
+                                     (torch.float32, 256),
+                                     (torch.bfloat16, 7),
+                                     (torch.bfloat16, 47)])
+@pytest.mark.parametrize("n", [75, 17, 5003])
+def test_k1_groups_bit_equal_on_card(cuda, n, dtype, f, case):
+    """K1's 32-row warp groups (a ragged last group, a lone short group, and
+    157 groups) at copy units of 16, 4 and 2 bytes, bit-equal to the plain
+    combine and to K4 at depths 2-4, one K1 launch a call."""
+    cache, miss, slots, mi = _k1_case(cuda, dtype, f, case, n)
+    if case == "misaligned":
+        assert cache.data_ptr() % 16 and miss.data_ptr() % 16
+    _k1_against_plain_and_k4(cache, miss, slots, mi, case == "all_hit")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_main_path_size_on_card(cuda, dtype):
+    """K1 at the main path's size: 201,344 rows of width 100 from a
+    489,806-row cache and a 64,000-row miss block, a third of the slots
+    missing, bit-equal to the plain combine and to K4 at depths 2-4."""
+    rng = np.random.default_rng(17)
+    k, m, n, f = 489_806, 64_000, 201_344, 100
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    cache = torch.randn(k, f, generator=gen, device=cuda).to(dtype)
+    miss = torch.randn(m, f, generator=gen, device=cuda).to(dtype)
+    slots = rng.integers(0, k, n).astype(np.int32)
+    slots[rng.random(n) < 1 / 3] = -1
+    mi = np.where(slots < 0, rng.integers(0, m, n), 0).astype(np.int32)
+    _k1_against_plain_and_k4(cache, miss, torch.from_numpy(slots).to(cuda),
+                             torch.from_numpy(mi).to(cuda), False)
+
+
 @pytest.mark.parametrize("depth", [1, 2, 4])
 def test_gather_rows_on_card(cuda, depth):
     rng = np.random.default_rng(depth)

@@ -11,9 +11,11 @@ scatter bit-equal, the segment sum and the fused layer within rtol=1e-5 /
 1e-4, flash attention (K8) within 1e-5 in f32 and 1e-2 in bf16.  The ``cuda_pipeline.h`` primitives of the multi-buffered combine and
 scatter (K4, K6) run as synchronous copies and dynamic shared memory as a
 static buffer, so the ring's slot arithmetic is checked but not its
-overlap.  ``__shfl_xor_sync`` exchanges through a block-wide buffer between
-two barriers, so it needs every thread of the block to call it together,
-as K8's row reductions do.  K8's bf16 body runs on ``mma.cuh``'s
+overlap.  ``__shfl_xor_sync`` and ``__shfl_sync`` exchange through a
+block-wide buffer between two barriers, so every lane of a warp calls them
+together (K8's row reductions, K1's source addresses; a warp that has left
+the kernel drops out of the barriers).  ``ldst.cuh``'s cache-hinted loads
+and stores (K1) become plain ones.  K8's bf16 body runs on ``mma.cuh``'s
 tensor-core primitives; their emulation (``ldmatrix`` plain and
 transposed, the m16n8k16 bf16 product with the PTX ISA's fragment
 layouts, ``cp.async`` with zero fill as a synchronous copy) exchanges
@@ -94,6 +96,18 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   __syncthreads();
   T out;
   std::memcpy(&out, emu_shfl_buf + 8 * (t ^ lane_mask), sizeof(T));
+  __syncthreads();
+  return out;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src_lane) {
+  static_assert(sizeof(T) <= 8, "emulated shuffle of 8 bytes at most");
+  const unsigned t = threadIdx.x + blockDim.x * (threadIdx.y +
+                                                 blockDim.y * threadIdx.z);
+  std::memcpy(emu_shfl_buf + 8 * t, &v, sizeof(T));
+  __syncthreads();
+  T out;
+  std::memcpy(&out, emu_shfl_buf + 8 * ((t & ~31u) + (src_lane & 31)),
+              sizeof(T));
   __syncthreads();
   return out;
 }
@@ -319,6 +333,16 @@ template <int N> inline void bulk_wait_read() {}
 template <int N> inline void bulk_wait() {}
 """
 
+# ldst.cuh's cache-hinted loads and stores as plain ones: the hints change
+# where lines live in L2, never the bits
+LDST_H = r"""
+#pragma once
+#include <cstdint>
+inline uint64_t l2_evict_last_policy() { return 0; }
+template <class V> V load_reused(const V* p, uint64_t) { return *p; }
+template <class V> void store_streaming(V* p, V v) { *p = v; }
+"""
+
 CUDA_PIPELINE_H = r"""
 #pragma once
 #include <cstddef>
@@ -353,6 +377,7 @@ def _write_headers(out):
     (out / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
     (out / "mma.cuh").write_text(MMA_H)
     (out / "tma.cuh").write_text(TMA_H)
+    (out / "ldst.cuh").write_text(LDST_H)
     shutil.copy(build.CSRC / "common.cuh", out / "common.cuh")
 
 
@@ -497,6 +522,73 @@ def test_emulated_combine_bulk_ring_wraps(emulated_ops, dtype, f, depth):
                                      torch.from_numpy(mi))
         got = emulated_ops.assemble_features(cache, miss, slots, mi, depth)
         assert torch.equal(_bits(got), _bits(want)), case
+
+
+def _k1_inputs(dtype, f, case, n, seed=0):
+    """K1's cases: a cache and a miss block whose first rows hold -0.0, a
+    denormal and NaNs with payloads of their own (bits a float round trip
+    would not keep), and index tables for ``case``: "mixed" slots,
+    "no_cache" (every slot -1), "all_hit" (a peer gather: every slot hits
+    and the miss block is empty) and "misaligned" (mixed, the cache and
+    miss block as views one element off a 16-byte boundary, so K1 copies
+    in a narrower unit)."""
+    rng = np.random.default_rng(seed * 1000 + n * 10 + f)
+    k, m = 90, 37
+    ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    off = 1 if case == "misaligned" else 0
+    special = torch.tensor([0x8000, 0x0001, 0x7FC5, 0xFFA1] if dtype ==
+                           torch.bfloat16 else
+                           [-2 ** 31, 0x00000001, 0x7FC01234, -0x5FEDCC],
+                           dtype=torch.int32).to(ibits)
+
+    def block(rows):
+        x = torch.from_numpy(rng.standard_normal(rows * f + off).astype(
+            np.float32)).to(dtype)[off:].view(rows, f)
+        flat = x.view(-1).view(ibits)
+        flat[:special.numel()] = special[:flat.numel()]
+        return x
+
+    cache, miss = block(k), block(m)
+    slots = rng.integers(-1, k, n).astype(np.int32)
+    slots[:4] = [0, -1, 0, -1]
+    if case == "no_cache":
+        cache, slots = None, np.full(n, -1, np.int32)
+    mi = np.where(slots < 0, rng.integers(0, m, n), 0).astype(np.int32)
+    mi[:4] = 0
+    if case == "all_hit":
+        slots, mi, miss = np.abs(slots), np.zeros(n, np.int32), miss[:0]
+    return cache, miss, slots, mi
+
+
+@pytest.mark.parametrize("case", ["mixed", "no_cache", "all_hit",
+                                  "misaligned"])
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 1),
+                                     (torch.float32, 47),
+                                     (torch.float32, 100),
+                                     (torch.float32, 256),
+                                     (torch.bfloat16, 7),
+                                     (torch.bfloat16, 47)])
+@pytest.mark.parametrize("n", [75, 17])
+def test_emulated_k1_groups_bit_equal(emulated_ops, n, dtype, f, case):
+    """K1's 32-row warp groups: a ragged last group (n = 75) and a lone
+    short one (n = 17); copy units of 16 bytes (f32 at 100 and 256), 4
+    (f32 at 1 and 47, and every misaligned f32 view) and 2 (odd bf16
+    widths), so a lane's run of units crosses rows at every stride; bit
+    for bit against the plain combine, one K1 launch a call."""
+    cache, miss, slots, mi = _k1_inputs(dtype, f, case, n)
+    if case == "misaligned":
+        assert cache.data_ptr() % 16 and miss.data_ptr() % 16
+    want = ref.assemble_features(cache, miss, torch.from_numpy(slots),
+                                 torch.from_numpy(mi))
+    before = emulated_ops.kernel_launches()
+    if case == "all_hit":
+        got = emulated_ops.gather_rows(cache, slots)
+    else:
+        got = emulated_ops.assemble_features(cache, miss, slots, mi)
+    after = emulated_ops.kernel_launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == "cache_combine") for k in after}
+    assert torch.equal(_bits(got), _bits(want))
 
 
 def test_emulated_gather_rows_and_ring_budget(emulated_ops):
