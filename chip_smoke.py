@@ -10,9 +10,10 @@ alone, its inputs cold, from torch.profiler's per-kernel durations with the
 L2 flushed before each call; ``call_ms``: one host-inclusive call between
 two CUDA events, as a Python caller pays it), and drives the hybrid
 trainer (``repro_torch.core.HybridGNNTrainer``) on ``cuda:0`` with the
-paper's ``sage-products`` configuration (layer widths
-(100, 256, 47), fanouts (25, 10), batch 1024, fused layer kernel, 20 % hot
-cache, dedup, DRM).  Phases, each printing one JSON line:
+paper's ``sage-products`` configuration (``PAPER_CONFIGS``: layer widths
+(100, 256, 47), fanouts (25, 10), batch 1024; the fused layer kernel, 20 %
+hot cache, dedup, DRM, and the reference's default accelerator sampler).
+Phases, each printing one JSON line:
 
   env          versions, the card, nvcc, kernel build time
   kernels      K1 combine (f32 and bf16: bit-equal and timed; also the
@@ -30,12 +31,32 @@ cache, dedup, DRM).  Phases, each printing one JSON line:
                slots: bit-equal to the plain keep-last scatter and to K5),
                and each kernel's times, plain times, library times and bound;
                K8 flash attention at the serve phase's prefill shape
-  train        ~10 iterations of the slice on the card; asserts finite
-               losses, an accelerator share on every iteration, CUDA inputs
-               and parameters, and K1/K2 launches on every accel iteration
+  train        ~10 iterations of the slice on the card, the CSR on the card
+               and the first round(0.5 n) batches sampled there; asserts
+               finite losses, an accelerator share on every iteration, CUDA
+               inputs and parameters, K1/K2 launches on every accel
+               iteration and at least one batch sampled on the card; each
+               row reports t_sa, the device-sampling share and the trainers
+               sampled on the card
+  sampler      the full CSR on the card (its bytes, memory_allocated before
+               and after); 20 batches of 1,024 targets at fanouts (25, 10)
+               through the device sampler (to a synchronize) and the host
+               sampler on the same targets, median ms of each; every card
+               batch checked: shapes, each source a CSR neighbour of its
+               destination (the destination itself at degree 0), the CSR's
+               degrees; two samplers of one seed bit-equal
+  compress     int8 and bf16 compression of the slice's real gradients on
+               the card and on the host: values and scales bit-equal; three
+               iterations with compression="int8": finite losses, t_sync
+  ckpt         the slice with ckpt_every=2 and an async CheckpointManager
+               (keep=2) callback into a temporary directory, the callback
+               also cloning the state: restore_latest onto cuda:0 bit-equal
+               to the clone, sha256 verified, two steps kept; save ms, bytes
   crosscheck   the slice with use_drm=False (sequential stages) for 3
                iterations on the card and on the host from the same weights:
-               losses within 1e-3, feature traffic equal
+               losses within 1e-3, feature traffic equal (this phase and
+               the refresh, shard and depth phases sample on the host: the
+               card's and the host's generators draw different numbers)
   segsum       gcn-products with agg_impl="pallas" (K3) for 3 iterations
   refresh      (a) the slice with cache_refresh=True, drift threshold 0, 6
                iterations: finite losses, cache version > 0, K5 launched,
@@ -83,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -120,7 +142,7 @@ K_SOURCES = {
 K6_DEPTHS = (2, 3, 4)        # K6's line reports depth 2
 K4_DEPTHS = (2, 3, 4)        # K4's line reports depth 2
 SHARD_ACCEL = 4
-STAGES = ("t_sc", "t_load", "t_tran", "t_tc", "t_ta")
+STAGES = ("t_sa", "t_sc", "t_load", "t_tran", "t_tc", "t_ta")
 LM_ARCH = "llama3.2-1b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
 HOST_BATCH, HOST_PROMPT, HOST_GEN = 1, 512, 4
@@ -290,6 +312,14 @@ def close(a, b, rtol, atol, what) -> float:
 def bits(t: torch.Tensor) -> torch.Tensor:
     """The raw bits of a float tensor (so NaN payloads compare too)."""
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtypes, shapes and bits (floats compared as raw words)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return (torch.equal(bits(a), bits(b)) if a.is_floating_point()
+            else torch.equal(a, b))
 
 
 def nbytes(*ts) -> int:
@@ -750,9 +780,22 @@ def phase_train(tr, iters: int) -> dict:
         spy.append((x0.device.type, next(iter(params.values())).device.type))
         return orig(params, batch, x0)
     tr._grad = traced
+    # the interpreter's garbage collections during the run (each holds the
+    # GIL, so every pipeline thread waits for it)
+    gcs: list = []
+
+    def on_gc(when, info):
+        if when == "start":
+            gcs.append([info["generation"], time.perf_counter()])
+        elif gcs:
+            gcs[-1][1] = (time.perf_counter() - gcs[-1][1]) * 1e3
+    gc.callbacks.append(on_gc)
     ops.reset_kernel_launches()
     t0 = time.perf_counter()
-    hist = tr.train(iters)
+    try:
+        hist = tr.train(iters)
+    finally:
+        gc.callbacks.remove(on_gc)
     wall = time.perf_counter() - t0
     launches = ops.kernel_launches()
     tr.close()
@@ -765,15 +808,237 @@ def phase_train(tr, iters: int) -> dict:
     check(launches["cache_combine"] >= accel_iters, f"K1 launches {launches}")
     check(launches["fused_update"] >= 2 * accel_iters,
           f"K2 launches {launches}")
+    check(any(m.device_sampled for m in hist),
+          "no batch was sampled on the card")
+    check(all((m.times.t_sa > 0) == bool(m.device_sampled) for m in hist),
+          "t_sa does not follow the device-sampled batches")
     rows = [dict(it=m.iteration, loss=m.loss, shares=m.shares,
+                 device_sampled=m.device_sampled,
+                 sample_frac_accel=m.sample_frac_accel,
                  assignment=m.assignment, mteps=m.mteps,
                  iter_s=m.iter_time, t_sync=m.t_sync,
                  **{k: getattr(m.times, k) for k in STAGES})
             for m in hist]
     res = dict(iters=len(hist), wall_s=wall, launches=launches,
+               gc={g: dict(count=sum(1 for c in gcs if c[0] == g),
+                           max_ms=max((c[1] for c in gcs if c[0] == g),
+                                      default=0.0),
+                           sum_ms=sum(c[1] for c in gcs if c[0] == g))
+                   for g in (0, 1, 2)},
                mean_mteps=tr.mean_mteps(), mean_iter_s=tr.mean_iter_time(),
                feature_traffic=tr.feature_traffic(), history=rows)
     emit("train", **res)
+    return res
+
+
+def edge_keys(indptr: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Every CSR edge (v, u) as the sorted key v * num_nodes + u."""
+    n = indptr.shape[0] - 1
+    dst = torch.repeat_interleave(torch.arange(n, device=indptr.device),
+                                  indptr[1:] - indptr[:-1])
+    return torch.sort(dst * n + indices.long()).values
+
+
+def check_device_batch(mb, indptr, indices, keys, b: int) -> None:
+    """A batch of the device sampler against the CSR, on the card: the
+    fixed shapes, every source a neighbour of its destination (the
+    destination itself at degree 0), the CSR's degrees, the dtypes."""
+    n = indptr.shape[0] - 1
+    deg = indptr[1:] - indptr[:-1]
+    frontier = mb.targets
+    check(frontier.shape == (b,) and mb.labels.dtype == torch.int64,
+          "sampler: targets or labels")
+    for h, f in enumerate(mb.fanouts):
+        src, dst = mb.hop_src[h], frontier.repeat_interleave(f)
+        check(src.shape == (frontier.shape[0] * f,) and src.is_cuda
+              and src.dtype == torch.int64, f"sampler: hop {h} sources")
+        edge = dst * n + src
+        pos = torch.searchsorted(keys, edge).clamp(max=keys.shape[0] - 1)
+        ok = torch.where(deg[dst] == 0, src == dst, keys[pos] == edge)
+        check(bool(ok.all()), f"sampler: hop {h} has a source that is not "
+              f"a neighbour of its destination")
+        check(torch.equal(mb.hop_src_deg[h], deg[src].int())
+              and torch.equal(mb.hop_dst_deg[h], deg[dst].int()),
+              f"sampler: hop {h} degrees differ from the CSR's")
+        frontier = torch.cat([frontier, src])
+
+
+def phase_sampler(ds, gnn, dev: torch.device, batches: int = 20,
+                  b: int = 1024) -> dict:
+    """The device sampler at the slice's size: the full CSR on the card,
+    ``batches`` batches of ``b`` targets timed beside the host sampler on
+    the same targets (each device batch to a synchronize, its targets'
+    upload included, as the trainer's t_sa), every batch checked."""
+    from repro_torch.graph import NumpySampler, sample_minibatch_torch
+    g = ds.graph
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    indptr = torch.from_numpy(np.ascontiguousarray(g.indptr, np.int64)).to(
+        dev)
+    indices = torch.from_numpy(g.indices).to(dev)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(dev)
+    keys = edge_keys(indptr, indices)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    host = NumpySampler(g, gnn.fanouts, seed=1)
+    rng = np.random.default_rng(11)
+    dev_ms, host_ms = [], []
+    for i in range(batches + 2):          # the first two warm up
+        tgt = rng.integers(0, ds.num_nodes, b)
+        labels = ds.labels[tgt]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mb = sample_minibatch_torch(gen, indptr, indices,
+                                    torch.from_numpy(tgt).to(dev),
+                                    torch.from_numpy(labels).to(dev),
+                                    gnn.fanouts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host.sample(tgt, labels)
+        t2 = time.perf_counter()
+        if i >= 2:
+            dev_ms.append((t1 - t0) * 1e3)
+            host_ms.append((t2 - t1) * 1e3)
+        check_device_batch(mb, indptr, indices, keys, b)
+    tgt = torch.from_numpy(rng.integers(0, ds.num_nodes, b)).to(dev)
+    twins = [sample_minibatch_torch(
+        torch.Generator(device=dev).manual_seed(5), indptr, indices, tgt,
+        tgt, gnn.fanouts) for _ in range(2)]
+    check(all(torch.equal(x, y) for x, y in zip(
+        twins[0].hop_src + twins[0].hop_src_deg + twins[0].hop_dst_deg,
+        twins[1].hop_src + twins[1].hop_src_deg + twins[1].hop_dst_deg)),
+        "sampler: one seed gave two different batches")
+    res = dict(csr_bytes=g.nbytes(), memory_allocated_before=mem0,
+               memory_allocated_after=mem1, batches=batches, batch=b,
+               fanouts=list(gnn.fanouts), edges_per_batch=mb.edges_traversed(),
+               device_ms_median=statistics.median(dev_ms),
+               host_ms_median=statistics.median(host_ms),
+               device_ms=dev_ms, host_ms=host_ms)
+    emit("sampler", **res)
+    return res
+
+
+def phase_compress(ds, gnn, slice_cfg) -> dict:
+    """Gradient compression: the slice's real gradients compressed on the
+    card and on the host, values and scales bit-equal; then three
+    iterations with compression="int8"."""
+    from repro_torch.core import HybridGNNTrainer
+    from repro_torch.optim import (CompressionSpec, compress_grads,
+                                   decompress_grads)
+    tr = HybridGNNTrainer(ds, gnn, dataclasses.replace(slice_cfg,
+                                                       compression="int8"))
+    grads_seen = []
+    orig = tr._apply_update
+
+    def spy(grads):
+        grads_seen.append({k: v.clone() for k, v in grads.items()})
+        return orig(grads)
+    tr._apply_update = spy
+    hist = tr.train(3)
+    tr.close()
+    check(all(math.isfinite(m.loss) for m in hist),
+          "compress: non-finite loss")
+    grads = grads_seen[-1]
+    check(all(v.is_cuda for v in grads.values()), "compress: grads off card")
+    host_grads = {k: v.cpu() for k, v in grads.items()}
+    for method in ("int8", "bf16"):
+        spec = CompressionSpec(method)
+        on_card = compress_grads(grads, spec)
+        on_host = compress_grads(host_grads, spec)
+        for k in grads:
+            # int8: (values, scale); bf16: one tensor
+            parts = (zip(on_card[k], on_host[k]) if method == "int8"
+                     else [(on_card[k], on_host[k])])
+            for a, c in parts:
+                check(same_bits(a.cpu(), c),
+                      f"compress {method}: {k} differs card vs host")
+        back = decompress_grads(on_card, spec, grads)
+        back_host = decompress_grads(on_host, spec, host_grads)
+        for k in grads:
+            check(same_bits(back[k].cpu(), back_host[k]),
+                  f"compress {method}: {k} decompressed differs")
+    res = dict(losses=[m.loss for m in hist],
+               t_sync=[m.t_sync for m in hist],
+               grad_bytes=nbytes(*grads.values()),
+               int8_bytes=sum(q.numel() + 4 for q, _ in compress_grads(
+                   grads, CompressionSpec("int8")).values()))
+    emit("compress", **res)
+    return res
+
+
+def phase_ckpt(ds, gnn, slice_cfg, dev: torch.device, iters: int = 6
+               ) -> dict:
+    """Checkpointing from the trainer's callback: every second iteration
+    an async save (keep 2) and a clone of the state; the latest restores
+    onto the card bit-equal to its clone."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.core import HybridGNNTrainer
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tr = HybridGNNTrainer(ds, gnn, dataclasses.replace(slice_cfg,
+                                                           ckpt_every=2))
+        mgr = CheckpointManager(tmp, keep=2, async_save=True)
+        clones, save_ms = {}, []
+
+        def clone(x):
+            if isinstance(x, dict):
+                return {k: clone(v) for k, v in x.items()}
+            return x.clone() if isinstance(x, torch.Tensor) else x
+
+        def cb(it, params, opt_state):
+            state = {"params": params, "opt": opt_state}
+            clones[it] = clone(state)
+            t0 = time.perf_counter()
+            mgr.save(it, state)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        tr.set_checkpoint_callback(cb)
+        hist = tr.train(iters)
+        tr.close()
+        t0 = time.perf_counter()
+        mgr.finalize()
+        finalize_ms = (time.perf_counter() - t0) * 1e3
+        want = sorted(clones)
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(tmp))
+        check(want == [1, 3, 5] and steps == want[-2:],
+              f"ckpt: callbacks at {want}, steps kept {steps}")
+        check(latest_step(tmp) == want[-1], "ckpt: latest step")
+        template = clone(clones[want[-1]])
+        t0 = time.perf_counter()
+        step, got = mgr.restore_latest(template, device=dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(step == want[-1], f"ckpt: restored step {step}")
+
+        def leaves(x, prefix=""):
+            if isinstance(x, dict):
+                for k, v in x.items():
+                    yield from leaves(v, f"{prefix}/{k}")
+            else:
+                yield prefix, x
+        ref = dict(leaves(clones[step]))
+        n = 0
+        for key, v in leaves(got):
+            w = ref[key]
+            if isinstance(w, torch.Tensor):
+                check(v.device == dev and same_bits(v, w),
+                      f"ckpt: {key} differs from its clone")
+            else:
+                check(v == w, f"ckpt: {key} {v} != {w}")
+            n += 1
+        check(n == len(ref), "ckpt: leaves missing")
+        with open(os.path.join(tmp, f"step_{step:08d}",
+                               "manifest.json")) as fh:
+            manifest = json.load(fh)
+        res = dict(iters=len(hist), steps_saved=want, steps_kept=steps,
+                   leaves=n, bytes=sum(i["bytes"] for i in
+                                       manifest["leaves"].values()),
+                   save_ms=save_ms, finalize_ms=finalize_ms,
+                   restore_ms=restore_ms,
+                   losses=[m.loss for m in hist])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("ckpt", **res)
     return res
 
 
@@ -1225,9 +1490,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.configs import PAPER_BATCH, PAPER_CONFIGS
     from repro_torch.core import HybridConfig, HybridGNNTrainer
     from repro_torch.core.perfmodel import platform_for_device_name
-    from repro_torch.graph import GNNConfig, make_dataset
+    from repro_torch.graph import make_dataset
     from repro_torch.kernels import build, ops
 
     if args.out:
@@ -1243,23 +1509,30 @@ def main() -> int:
     ds = make_dataset("ogbn-products", scale=args.scale, seed=0)
     emit("dataset", scale=args.scale, nodes=ds.num_nodes,
          edges=ds.num_edges, seconds=time.perf_counter() - t0)
-    sage = GNNConfig(model="sage", layer_dims=(100, 256, 47),
-                     fanouts=(25, 10), num_classes=47,
-                     agg_impl="pallas_fused")
+    sage = dataclasses.replace(PAPER_CONFIGS["sage-products"][1],
+                               agg_impl="pallas_fused")
+    gcn = dataclasses.replace(PAPER_CONFIGS["gcn-products"][1],
+                              agg_impl="pallas")
     slice_cfg = HybridConfig(
-        total_batch=1024, n_accel=1, hybrid=True, use_drm=True, tfp_depth=2,
-        dedup=True, cache_fraction=0.2, cache_sharding="replicated",
-        feature_dtype="float32", use_accel_sampler=False,
+        total_batch=PAPER_BATCH, n_accel=1, hybrid=True, use_drm=True,
+        tfp_depth=2, dedup=True, cache_fraction=0.2,
+        cache_sharding="replicated", feature_dtype="float32",
         kernel_pipeline_depth=1, accel_platform=platform, seed=0)
+    # phases that hold two runs equal sample on the host
+    host_cfg = dataclasses.replace(slice_cfg, use_accel_sampler=False)
     tr = HybridGNNTrainer(ds, sage, slice_cfg)
     b = tr.runtime.quantized_shares()[1] or 1024
     kern = phase_kernels(tr, b, platform, torch.device("cuda", 0))
     train = phase_train(tr, args.iters)
+    del tr
+    phase_sampler(ds, sage, torch.device("cuda", 0))
+    phase_compress(ds, sage, slice_cfg)
+    phase_ckpt(ds, sage, slice_cfg, torch.device("cuda", 0))
 
     # cross-check: card vs host from the same weights.  Sequential stages
     # (tfp_depth=0) make the hit-rate feedback see the same window at every
     # boundary in both runs, so both take the same shares.
-    cc_cfg = dataclasses.replace(slice_cfg, use_drm=False, tfp_depth=0)
+    cc_cfg = dataclasses.replace(host_cfg, use_drm=False, tfp_depth=0)
     runs = {}
     weights = None
     for dev in ("cuda", "cpu"):
@@ -1281,8 +1554,6 @@ def main() -> int:
     emit("crosscheck", max_loss_diff=dl, **runs)
 
     # the segment-sum path: gcn-products through K3
-    gcn = GNNConfig(model="gcn", layer_dims=(100, 256, 47), fanouts=(25, 10),
-                    num_classes=47, agg_impl="pallas")
     t = HybridGNNTrainer(ds, gcn, slice_cfg)
     ops.reset_kernel_launches()
     hist = t.train(3)
@@ -1294,10 +1565,10 @@ def main() -> int:
         f"K3 launches {seg_launches}")
     emit("segsum", launches=seg_launches, losses=[m.loss for m in hist],
          shares=[m.shares for m in hist])
-    refresh_launches = phase_refresh(ds, sage, slice_cfg,
+    refresh_launches = phase_refresh(ds, sage, host_cfg,
                                      torch.device("cuda", 0))
-    shard_launches = phase_shard(ds, sage, slice_cfg)
-    phase_depth(ds, sage, slice_cfg)
+    shard_launches = phase_shard(ds, sage, host_cfg)
+    phase_depth(ds, sage, host_cfg)
     serve_res = phase_serve(torch.device("cuda", 0))
 
     launches = dict(train["launches"])

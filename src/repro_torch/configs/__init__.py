@@ -1,5 +1,7 @@
 """The LM architectures (port of ``repro/configs``: the ten config modules'
-FULL and REDUCED numbers and the registry)."""
+FULL and REDUCED numbers and the registry) and the paper's GNN configs."""
+from .hyscale_gnn import PAPER_BATCH, PAPER_CONFIGS, PAPER_FANOUTS
 from .registry import ARCHS, get_arch
 
-__all__ = ["ARCHS", "get_arch"]
+__all__ = ["ARCHS", "get_arch", "PAPER_CONFIGS", "PAPER_BATCH",
+           "PAPER_FANOUTS"]

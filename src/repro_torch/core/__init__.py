@@ -2,16 +2,19 @@
 hybrid trainer, as in ``repro.core``."""
 from .drm import Assignment, DRMEngine, StageTimes
 from .hybrid import HybridConfig, HybridGNNTrainer, IterationMetrics
-from .perfmodel import (PLATFORMS, PlatformSpec, WorkloadSpec,
-                        initial_task_mapping, mteps, predict)
+from .perfmodel import (PLATFORMS, PlatformSpec, StagePrediction,
+                        WorkloadSpec, calibrate_sampling,
+                        initial_task_mapping, mteps, predict,
+                        predict_epoch_time)
 from .pipeline import PipelineItem, PrefetchPipeline, Stage
 from .protocol import Runtime, Synchronizer, TrainerHandle
 
 __all__ = [
     "Assignment", "DRMEngine", "StageTimes",
     "HybridConfig", "HybridGNNTrainer", "IterationMetrics",
-    "PLATFORMS", "PlatformSpec", "WorkloadSpec", "initial_task_mapping",
-    "mteps", "predict",
+    "PLATFORMS", "PlatformSpec", "StagePrediction", "WorkloadSpec",
+    "calibrate_sampling", "initial_task_mapping", "mteps", "predict",
+    "predict_epoch_time",
     "PipelineItem", "PrefetchPipeline", "Stage",
     "Runtime", "Synchronizer", "TrainerHandle",
 ]

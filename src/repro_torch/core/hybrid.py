@@ -3,7 +3,8 @@
 Port of ``repro/core/hybrid.py``'s main path.  ``HybridGNNTrainer`` wires
 the logical components of Fig. 3/4 into the pipelined runtime:
 
-  Mini-batch Sampler (host numpy)                       -> stage "sample"
+  Mini-batch Sampler (host numpy; the first batches on
+    the card when the CSR fits there)                   -> stage "sample"
   Feature Loader (dedup + hot-cache lookup, host gather) -> stage "load"
   Data Transfer (pinned host->device copies + the
     on-device combine, the paper's Feature Duplicator)  -> stage "transfer"
@@ -55,6 +56,15 @@ reaches every combine, every peer gather (K1 at 1, K4 at 2..4) and the
 cache's refresh scatter (K5 at 1, K6 at 2..4); every depth gives the same
 bits.
 
+With ``use_accel_sampler`` (the default, as in the reference) a CSR under
+1 GiB is put on the sampling device, and the sample stage draws the first
+``round(sample_frac_accel * n)`` of an iteration's n batches there
+(``sample_minibatch_torch``, timed as ``t_sa``); the DRM moves that share
+from the measured ``t_sa`` and ``t_sc``.  ``compression`` quantizes the
+averaged gradients before the optimizer, as the reference's sync path
+does, and ``ckpt_every`` hands the parameters and optimizer state to the
+callback given to ``set_checkpoint_callback``.
+
 Knobs of the reference that this slice does not port raise
 ``NotImplementedError`` naming the ROADMAP item that will port them; none
 is silently ignored.
@@ -78,9 +88,11 @@ from ..graph.featcache import (ShardPlacement, ShardedFeatureCache,
 from ..graph.featload import FeatureLoader, MissBlock, ShardMissBlock
 from ..graph.models import (GNNConfig, init_params, loss_fn,
                             params_from_numpy)
-from ..graph.sampler import MiniBatch, NumpySampler
+from ..graph.sampler import MiniBatch, NumpySampler, sample_minibatch_torch
 from ..graph.storage import GraphDataset
 from ..kernels.ops import assemble_features, assemble_features_sharded
+from ..optim.compression import (CompressionSpec, compress_grads,
+                                 decompress_grads)
 from ..optim.optimizers import adamw, apply_updates
 from .drm import Assignment, StageTimes
 from .perfmodel import PLATFORMS, initial_task_mapping
@@ -102,9 +114,10 @@ class HybridConfig:
     hybrid: bool = True               # CPU trainer participates
     use_drm: bool = True
     tfp_depth: int = 2                # 0 = sequential (no TFP)
-    use_accel_sampler: bool = False   # not ported (the reference's default
-                                      #   is True)
-    compression: str = "none"
+    use_accel_sampler: bool = True    # sample on the card when the CSR
+                                      #   is under 1 GiB
+    compression: str = "none"         # sync-path gradient compression:
+                                      #   none | bf16 | int8
     feature_dtype: str = "float32"    # transfer dtype: float32 | bfloat16
     cache_fraction: float = 0.0       # device hot-feature cache (0 = off)
     cache_sharding: str = "replicated"  # | "sharded": a disjoint hot shard
@@ -140,22 +153,18 @@ class HybridConfig:
     seed: int = 0
     host_platform: str = "epyc-7763"
     accel_platform: str = "h100-sxm"
-    ckpt_every: int = 0               # checkpointing (not ported)
-    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0               # call the checkpoint callback every
+                                      #   N iterations (0 = never)
+    ckpt_dir: Optional[str] = None    # for the caller; the trainer does not
+                                      #   read it
 
     def __post_init__(self):
         for on, knob, item in (
-                (self.use_accel_sampler, "use_accel_sampler=True",
-                 "accelerator sampler"),
                 (self.prefetch_windows > 0, "prefetch_windows>0",
                  "out-of-core storage tier"),
                 (self.mmap_lru_windows > 0, "mmap_lru_windows>0",
                  "out-of-core storage tier"),
                 (self.auto_tune, "auto_tune=True", "knob autotuner"),
-                (self.compression != "none",
-                 f"compression={self.compression!r}",
-                 "gradient compression"),
-                (self.ckpt_every > 0, "ckpt_every>0", "checkpointing"),
                 (self.pipeline_watchdog_seconds > 0,
                  "pipeline_watchdog_seconds>0", "fault injection and "
                  "degraded modes")):
@@ -163,6 +172,8 @@ class HybridConfig:
                 raise NotImplementedError(
                     f"HybridConfig({knob}) is not ported yet "
                     f"(ROADMAP, port queue: {item})")
+        if self.compression not in CompressionSpec.METHODS:
+            raise ValueError(f"compression {self.compression!r}")
         if self.feature_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"feature_dtype {self.feature_dtype!r}")
         if self.cache_sharding not in ("replicated", "sharded"):
@@ -190,6 +201,10 @@ class IterationMetrics:
     cache_version: int = 0            # hot-cache version after this
                                       #   iteration's boundary (> 0 once a
                                       #   refresh moved rows)
+    device_sampled: Tuple[str, ...] = ()  # trainers whose batch was
+                                      #   sampled on the device
+    sample_frac_accel: float = 0.0    # the DRM's device-sampling share
+                                      #   after this iteration's step
 
     @property
     def iter_time(self) -> float:
@@ -239,10 +254,26 @@ class HybridGNNTrainer:
         gen = torch.Generator().manual_seed(cfg.seed)
         self.optimizer = adamw(cfg.lr)
         self.set_params(init_params(gnn_cfg, gen, device=self.device))
+        self.compression = CompressionSpec(cfg.compression)
+        self._ckpt_cb = None
 
-        # --- sampler, feature store: device hot cache + dedup loader --------
+        # --- samplers: host numpy, and the device's when the CSR fits -------
         self.cpu_sampler = NumpySampler(dataset.graph, gnn_cfg.fanouts,
                                         seed=cfg.seed + 1)
+        self._dev_topology: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._sample_stream = None
+        if cfg.use_accel_sampler and dataset.graph.nbytes() < (1 << 30):
+            g = dataset.graph
+            self._dev_topology = (
+                to_device(np.ascontiguousarray(g.indptr, np.int64),
+                          self.device),
+                to_device(np.ascontiguousarray(g.indices), self.device))
+            self._sample_gen = torch.Generator(
+                device=self.device).manual_seed(cfg.seed + 2)
+            if self.device.type == "cuda":
+                self._sample_stream = torch.cuda.Stream(self.device)
+
+        # --- feature store: device hot cache + dedup loader ------------------
         # "sharded" partitions the hot set across the accelerators; below
         # two there is nothing to partition and the cache stays replicated
         refresh_kw = dict(transfer_dtype=cfg.feature_dtype,
@@ -297,7 +328,8 @@ class HybridGNNTrainer:
         thr = cfg.initial_threads or (2, 2, 2)
         assignment = Assignment(
             cpu_batch=mapping["cpu"], accel_batch=mapping["accel_each"],
-            n_accel=cfg.n_accel, sample_frac_accel=0.0,
+            n_accel=cfg.n_accel,
+            sample_frac_accel=0.5 if self._dev_topology is not None else 0.0,
             threads={"sample": int(thr[0]), "load": int(thr[1]),
                      "train": int(thr[2])})
         self.runtime = Runtime(assignment, use_drm=cfg.use_drm,
@@ -340,6 +372,11 @@ class HybridGNNTrainer:
             return 1.0
         return look.num_miss / look.miss_positions
 
+    def set_checkpoint_callback(self, cb) -> None:
+        """``cb(iteration, params, opt_state)`` runs after every
+        ``ckpt_every``-th iteration."""
+        self._ckpt_cb = cb
+
     def _next_targets(self, n: int) -> np.ndarray:
         if self._cursor + n > len(self._epoch_perm):
             self._epoch_perm = self._rng.permutation(self.dataset.num_nodes)
@@ -376,13 +413,51 @@ class HybridGNNTrainer:
         return PipelineItem(seq=it, payload=payload)
 
     def _stage_sample(self, item: PipelineItem) -> PipelineItem:
+        """Sample every trainer's batch: the first ``round(frac * n)``
+        names in payload order ("cpu" first) on the device, the rest on the
+        host, as the reference routes them (Python's ``round`` halves to
+        even: at two trainers and frac 0.5 the CPU trainer's batch is the
+        one sampled on the device)."""
         p = item.payload
-        t0 = time.perf_counter()
-        for name, tgt in p["targets"].items():
-            p["minibatch"][name] = self.cpu_sampler.sample(
-                tgt, self.dataset.labels[tgt])
-        p["t"]["t_sc"] = time.perf_counter() - t0
+        frac = self.runtime.assignment.sample_frac_accel
+        names = list(p["targets"])
+        n_dev = (int(round(frac * len(names)))
+                 if self._dev_topology is not None else 0)
+        t_sc = t_sa = 0.0
+        for i, name in enumerate(names):
+            tgt = p["targets"][name]
+            labels = self.dataset.labels[tgt]
+            t0 = time.perf_counter()
+            if i < n_dev:
+                p["minibatch"][name] = self._sample_on_device(tgt, labels)
+                t_sa += time.perf_counter() - t0
+            else:
+                p["minibatch"][name] = self.cpu_sampler.sample(tgt, labels)
+                t_sc += time.perf_counter() - t0
+        p["t"]["t_sc"], p["t"]["t_sa"] = t_sc, t_sa
+        p["device_sampled"] = tuple(names[:n_dev])
         return item
+
+    def _sample_on_device(self, tgt: np.ndarray,
+                          labels: np.ndarray) -> MiniBatch:
+        """One batch from the device sampler, returned once its work is
+        done (``t_sa`` stops there, as the reference's
+        ``block_until_ready``).  On a card it runs on a stream of its own:
+        waiting for the default stream would also wait for the trainers'
+        kernels queued there.  Since the host has waited, the consumers
+        need no event; the batch is marked as used by the default stream,
+        where the trainer reads it and cross-device copies run, so its
+        memory is not handed back to the sampling stream before then."""
+        dev = self.device
+        with torch.cuda.stream(self._sample_stream):
+            mb = sample_minibatch_torch(
+                self._sample_gen, *self._dev_topology,
+                to_device(tgt, dev), to_device(labels, dev),
+                self.gnn_cfg.fanouts)
+        if self._sample_stream is not None:
+            self._sample_stream.synchronize()
+            mb.record_stream(torch.cuda.default_stream(dev))
+        return mb
 
     def _stage_load(self, item: PipelineItem) -> PipelineItem:
         p = item.payload
@@ -580,6 +655,9 @@ class HybridGNNTrainer:
 
     def _apply_update(self, grads: Params) -> float:
         t0 = time.perf_counter()
+        if self.compression.method != "none":
+            comp = compress_grads(grads, self.compression)
+            grads = decompress_grads(comp, self.compression, self.params)
         updates, self.opt_state = self.optimizer.update(
             grads, self.opt_state, self.params)
         self.params = apply_updates(self.params, updates)
@@ -799,7 +877,7 @@ class HybridGNNTrainer:
             grads, ttimes, metrics = self._run_trainers(item)
             t_sync = self._apply_update(grads)
             times = StageTimes(
-                t_sc=p["t"].get("t_sc", 0.0),
+                t_sa=p["t"].get("t_sa", 0.0), t_sc=p["t"].get("t_sc", 0.0),
                 t_load=p["t"].get("t_load", 0.0),
                 t_tran=p["t"].get("t_tran", 0.0),
                 t_tc=ttimes["t_tc"], t_ta=ttimes["t_ta"])
@@ -821,7 +899,12 @@ class HybridGNNTrainer:
                 shares=dict(p["shares"]),
                 cache_hit_rate=(self.cache.measured_hit_rate()
                                 if self.cache else 0.0),
-                cache_version=self.cache.version if self.cache else 0))
+                cache_version=self.cache.version if self.cache else 0,
+                device_sampled=p["device_sampled"],
+                sample_frac_accel=self.runtime.assignment.sample_frac_accel))
+            if (self.cfg.ckpt_every and self._ckpt_cb
+                    and (p["iteration"] + 1) % self.cfg.ckpt_every == 0):
+                self._ckpt_cb(p["iteration"], self.params, self.opt_state)
         # a stage that failed after the last boundary would otherwise vanish
         self._raise_background_errors()
         return self.history

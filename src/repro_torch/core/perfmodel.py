@@ -1,7 +1,8 @@
 """Performance model (paper Section V, Eqs. 5-13).
 
-Port of ``repro/core/perfmodel.py`` (the stage model and the design-time
-task mapping; the knob-space model of the autotuner is not ported yet).
+Port of ``repro/core/perfmodel.py`` (the stage model, the design-time
+task mapping and the epoch-time model of Table 6; the knob-space model of
+the autotuner is not ported yet).
 Predicts per-stage times from algorithmic parameters (mini-batch edge and
 vertex counts, layer widths) and platform data, and derives the *initial*
 coarse-grained task mapping (CPU vs accelerator mini-batch shares).  The
@@ -13,11 +14,14 @@ its datasheet.  Throughput metric: MTEPS (Eq. 5).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+import time
+from typing import Callable, Dict, Sequence, Tuple
 
 __all__ = ["PlatformSpec", "PLATFORMS", "WorkloadSpec", "StagePrediction",
            "predict", "initial_task_mapping", "mteps",
-           "platform_for_device_name"]
+           "platform_for_device_name", "calibrate_sampling",
+           "predict_epoch_time"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,3 +383,26 @@ def initial_task_mapping(host: PlatformSpec, accel: PlatformSpec,
     cpu_share = best[1]
     return {"cpu": cpu_share,
             "accel_each": (total_batch - cpu_share) // max(n_accel, 1)}
+
+
+def calibrate_sampling(sampler_fn: Callable[[int], None],
+                       batch_sizes: Sequence[int],
+                       repeats: int = 3) -> Dict[int, float]:
+    """T_samp is measured, not modeled (paper §V): run the sampling
+    algorithm at each batch size during the design phase.  ``sampler_fn``
+    returns once its work is done (a device sampler synchronizes)."""
+    table: Dict[int, float] = {}
+    for b in batch_sizes:
+        sampler_fn(b)  # warmup
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            sampler_fn(b)
+        table[b] = (time.perf_counter() - t0) / repeats
+    return table
+
+
+def predict_epoch_time(num_nodes: int, total_batch: int,
+                       pred: StagePrediction) -> float:
+    """Iterations of one epoch over ``num_nodes`` targets times Eq. 6."""
+    iters = math.ceil(num_nodes / total_batch)
+    return iters * pred.t_execution

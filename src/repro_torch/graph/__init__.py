@@ -3,7 +3,8 @@
 from .storage import (CSRGraph, DATASET_STATS, TRAIN_SPLIT, DenseFeatures,
                       FeatureSource, GraphDataset, HashedFeatures,
                       as_feature_source, make_dataset, synth_powerlaw_graph)
-from .sampler import MiniBatch, NumpySampler, frontier_sizes
+from .sampler import (MiniBatch, NumpySampler, frontier_sizes,
+                      sample_minibatch_torch)
 from .featcache import (CacheLookup, CacheStats, FeatureCache, ShardLookup,
                         ShardPlacement, ShardedFeatureCache, UnionLookup,
                         build_cache, build_sharded_cache, compact_lookup,
@@ -16,7 +17,7 @@ __all__ = [
     "CSRGraph", "DATASET_STATS", "TRAIN_SPLIT", "DenseFeatures",
     "FeatureSource", "GraphDataset", "HashedFeatures", "as_feature_source",
     "make_dataset", "synth_powerlaw_graph",
-    "MiniBatch", "NumpySampler", "frontier_sizes",
+    "MiniBatch", "NumpySampler", "frontier_sizes", "sample_minibatch_torch",
     "CacheLookup", "CacheStats", "FeatureCache", "ShardLookup",
     "ShardPlacement", "ShardedFeatureCache", "UnionLookup", "build_cache",
     "build_sharded_cache", "compact_lookup", "wire_row_bytes",

@@ -226,7 +226,12 @@ class FeatureLoader:
         return np.concatenate(parts, axis=0)
 
     def _frontier(self, batch: MiniBatch) -> np.ndarray:
-        return np.asarray(batch.frontier(len(batch.fanouts)))
+        """The batch's innermost frontier as host ids: a batch sampled on
+        the device brings it to the host once, since the loader classifies
+        and gathers on the host."""
+        f = batch.frontier(len(batch.fanouts))
+        return f.cpu().numpy() if isinstance(f, torch.Tensor) else \
+            np.asarray(f)
 
     def load(self, batch: MiniBatch, to_device: bool = True) -> torch.Tensor:
         """Gather features for the innermost frontier (layer-0 inputs).

@@ -1,18 +1,22 @@
-"""Mini-batch Sampler (paper Section III-A), host side.
+"""Mini-batch Sampler (paper Section III-A).
 
 Port of ``repro/graph/sampler.py``: the GraphSAGE neighbor sampler (uniform
-with replacement, zero-degree nodes fall back to self-loops) in vectorized
-numpy.  For the same seed its batches are bit-equal to the reference's
-``NumpySampler``.
+with replacement, zero-degree nodes fall back to self-loops) with two
+interchangeable backends:
 
-A ``MiniBatch`` holds numpy arrays on the host; ``to(device)`` returns the
-same batch as torch tensors on a device.  The reference runs JAX with x64
-off, so its ids and degrees are int32: the host batch keeps the exact int64
-ids (what the loader gathers by) and ``to()`` ships degrees as int32 and
-labels as int64 (the dtype ``torch.gather`` indexes with).
+* ``NumpySampler`` -- vectorized numpy on the host, the paper's "Sampling
+  on CPU".  For the same seed its batches are bit-equal to the reference's.
+* ``sample_minibatch_torch`` -- torch ops on the device that holds the CSR,
+  the paper's "Sampling on Accelerator" (the reference's
+  ``sample_minibatch_jax``).  Its draws come from a ``torch.Generator``, not
+  threefry, so it agrees with the reference in distribution and layout,
+  not bit for bit.
 
-The "Sampling on Accelerator" path (``use_accel_sampler``) is not ported
-yet (ROADMAP, port queue).
+A host ``MiniBatch`` holds numpy arrays and a device one torch tensors;
+``to(device)`` gives either as tensors on a device.  The reference runs JAX
+with x64 off, so its ids and degrees are int32: the port keeps exact int64
+ids (what the loader gathers by) and ships degrees as int32 and labels as
+int64 (the dtype ``torch.gather`` indexes with).
 """
 from __future__ import annotations
 
@@ -25,9 +29,11 @@ import torch
 from ..device import to_device
 from .storage import CSRGraph
 
-__all__ = ["MiniBatch", "NumpySampler", "frontier_sizes"]
+__all__ = ["MiniBatch", "NumpySampler", "sample_minibatch_torch",
+           "frontier_sizes"]
 
 Array = Union[np.ndarray, torch.Tensor]
+_NP = {torch.int64: np.int64, torch.int32: np.int32}
 
 
 @dataclasses.dataclass
@@ -67,18 +73,30 @@ class MiniBatch:
         return sum(int(s.shape[0]) for s in self.hop_src)
 
     def to(self, device: torch.device) -> "MiniBatch":
-        """The batch as tensors on ``device`` (pinned, non-blocking copies
-        on CUDA)."""
-        def put(a: np.ndarray, dtype) -> torch.Tensor:
-            return to_device(np.ascontiguousarray(a, dtype=dtype), device)
+        """The batch as tensors on ``device``: host arrays through pinned,
+        non-blocking copies on CUDA; a device batch's tensors copied (or
+        kept, on their own device) with the same dtypes."""
+        def put(a: Array, dtype: torch.dtype) -> torch.Tensor:
+            if isinstance(a, torch.Tensor):
+                return a.to(device=device, dtype=dtype)
+            return to_device(np.ascontiguousarray(a, dtype=_NP[dtype]),
+                             device)
 
         return MiniBatch(
-            targets=put(self.targets, np.int64),
-            labels=put(self.labels, np.int64),
-            hop_src=tuple(put(s, np.int64) for s in self.hop_src),
-            hop_src_deg=tuple(put(d, np.int32) for d in self.hop_src_deg),
-            hop_dst_deg=tuple(put(d, np.int32) for d in self.hop_dst_deg),
+            targets=put(self.targets, torch.int64),
+            labels=put(self.labels, torch.int64),
+            hop_src=tuple(put(s, torch.int64) for s in self.hop_src),
+            hop_src_deg=tuple(put(d, torch.int32) for d in self.hop_src_deg),
+            hop_dst_deg=tuple(put(d, torch.int32) for d in self.hop_dst_deg),
             fanouts=self.fanouts)
+
+    def record_stream(self, stream) -> None:
+        """Mark a device batch's tensors as used by ``stream``, so the
+        caching allocator keeps their memory until the work ``stream``
+        queued on them has run."""
+        for t in (self.targets, self.labels, *self.hop_src,
+                  *self.hop_src_deg, *self.hop_dst_deg):
+            t.record_stream(stream)
 
 
 def frontier_sizes(batch: int, fanouts: Sequence[int]) -> Tuple[int, ...]:
@@ -129,3 +147,41 @@ class NumpySampler:
             hop_dst_deg=tuple(hop_ddeg),
             fanouts=self.fanouts,
         )
+
+
+def sample_minibatch_torch(generator: torch.Generator, indptr: torch.Tensor,
+                           indices: torch.Tensor, targets: torch.Tensor,
+                           labels: torch.Tensor,
+                           fanouts: Sequence[int]) -> MiniBatch:
+    """The sampler on the device that holds the CSR (``indptr`` int64,
+    ``indices``), the paper's "Sampling on Accelerator": the semantics of
+    ``NumpySampler`` and of the reference's ``sample_minibatch_jax``.  Each
+    hop draws ``randint(0, 1 << 30)`` per edge from ``generator`` (the
+    reference's range; the host sampler's is ``1 << 31``), picks neighbour
+    ``r % max(deg, 1)`` of its destination, takes the destination itself
+    where its degree is 0, and appends the sources to the frontier.  Ids
+    and labels come back int64, degrees int32, on the CSR's device."""
+    dev = indptr.device
+    deg_all = indptr[1:] - indptr[:-1]
+    frontier = targets.to(device=dev, dtype=torch.int64)
+    hop_src, hop_sdeg, hop_ddeg = [], [], []
+    for f in fanouts:
+        deg = deg_all[frontier]
+        r = torch.randint(0, 1 << 30, (frontier.shape[0], f),
+                          generator=generator, device=dev, dtype=torch.int64)
+        offs = r % deg.clamp(min=1)[:, None] + indptr[frontier][:, None]
+        # a zero-degree destination reads edge 0 (its row may start at
+        # num_edges, past the end) and takes the self-loop below
+        alone = (deg == 0)[:, None]
+        offs = offs.masked_fill(alone, 0)
+        src = torch.where(alone, frontier[:, None],
+                          indices[offs].to(torch.int64)).reshape(-1)
+        hop_src.append(src)
+        hop_sdeg.append(deg_all[src].to(torch.int32))
+        hop_ddeg.append(deg.to(torch.int32).repeat_interleave(f))
+        frontier = torch.cat([frontier, src])
+    return MiniBatch(
+        targets=targets.to(device=dev, dtype=torch.int64),
+        labels=labels.to(device=dev, dtype=torch.int64),
+        hop_src=tuple(hop_src), hop_src_deg=tuple(hop_sdeg),
+        hop_dst_deg=tuple(hop_ddeg), fanouts=tuple(int(f) for f in fanouts))

@@ -460,8 +460,11 @@ def test_trainer_on_card_matches_host(cuda, agg_impl):
     ds = make_dataset("ogbn-products", scale=0.01, seed=0)
     g = GNNConfig(model="gcn", layer_dims=(100, 64, 47), fanouts=(10, 5),
                   agg_impl=agg_impl)
+    # the card's and the host's generators draw different numbers: both
+    # runs sample on the host
     cfg = HybridConfig(total_batch=512, use_drm=False, tfp_depth=0,
-                       cache_fraction=0.2, accel_platform="rtx-a5000")
+                       cache_fraction=0.2, use_accel_sampler=False,
+                       accel_platform="rtx-a5000")
     runs = {}
     for dev in ("cuda", "cpu"):
         tr = HybridGNNTrainer(ds, g, cfg, device=dev)
@@ -588,3 +591,66 @@ def test_reduced_lm_flash_matches_blocked_on_card(cuda, dtype):
         assert float(diff.max()) <= 1e-4
     else:
         assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02
+
+
+def _check_device_batch(mb, indptr, indices):
+    """On the card: every source a CSR neighbour of its destination, or the
+    destination itself at degree 0; the CSR's degrees; the dtypes of
+    ``MiniBatch.to``."""
+    deg = indptr[1:] - indptr[:-1]
+    keys = torch.sort(torch.repeat_interleave(
+        torch.arange(deg.shape[0], device=deg.device), deg)
+        * deg.shape[0] + indices.long()).values
+    frontier = mb.targets
+    for h, f in enumerate(mb.fanouts):
+        src, dst = mb.hop_src[h], frontier.repeat_interleave(f)
+        assert src.dtype == torch.int64 and src.is_cuda
+        edge = dst * deg.shape[0] + src
+        pos = torch.searchsorted(keys, edge).clamp(max=keys.shape[0] - 1)
+        ok = torch.where(deg[dst] == 0, src == dst, keys[pos] == edge)
+        assert bool(ok.all())
+        assert torch.equal(mb.hop_src_deg[h], deg[src].int())
+        assert torch.equal(mb.hop_dst_deg[h], deg[dst].int())
+        frontier = torch.cat([frontier, src])
+
+
+@pytest.mark.parametrize("fanouts", [(25, 10), (3, 2)], ids=str)
+def test_device_sampler_on_card(cuda, fanouts):
+    """The accelerator sampler on the card: neighbours, degrees and dtypes
+    as on the host, the same seed bit-equal."""
+    from repro_torch.graph import sample_minibatch_torch
+    ds = make_dataset("ogbn-products", scale=0.01, seed=0)
+    indptr = torch.from_numpy(ds.graph.indptr).to(cuda)
+    indices = torch.from_numpy(ds.graph.indices).to(cuda)
+    tgt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, ds.num_nodes, 1024)).to(cuda)
+    labels = torch.zeros(1024, dtype=torch.int32, device=cuda)
+    batches = [sample_minibatch_torch(
+        torch.Generator(device=cuda).manual_seed(7), indptr, indices, tgt,
+        labels, fanouts) for _ in range(2)]
+    _check_device_batch(batches[0], indptr, indices)
+    for x, y in zip(batches[0].hop_src + batches[0].hop_src_deg,
+                    batches[1].hop_src + batches[1].hop_src_deg):
+        assert torch.equal(x, y)
+    assert batches[0].labels.dtype == torch.int64
+
+
+def test_trainer_samples_on_card(cuda):
+    """The default configuration samples the first round(0.5 n) of n
+    batches on the card (the CPU trainer's, first of two) and trains with
+    finite losses."""
+    ds = make_dataset("ogbn-products", scale=0.01, seed=0)
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5),
+                  agg_impl="kernel_fused")
+    tr = HybridGNNTrainer(ds, g, HybridConfig(
+        total_batch=512, use_drm=False, cache_fraction=0.2,
+        accel_platform="rtx-a5000"))
+    assert tr._dev_topology[0].is_cuda
+    hist = tr.train(3)
+    tr.close()
+    assert all(math.isfinite(m.loss) for m in hist)
+    for m in hist:
+        names = list(m.shares)
+        assert list(m.device_sampled) == names[:round(0.5 * len(names))]
+        assert (m.times.t_sa > 0) == bool(m.device_sampled)
+    assert any(m.device_sampled for m in hist)

@@ -1,6 +1,6 @@
 """The PyTorch/CUDA port stands alone: it imports nothing of JAX or of the
 reference package, its entry points refuse to run without CUDA unless asked
-for the host, and every knob outside the ported slice raises."""
+for the host, and every knob outside the ported slices raises."""
 import ast
 import dataclasses
 import os
@@ -83,17 +83,24 @@ def test_trainer_default_device_requires_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    {"use_accel_sampler": True},
     {"prefetch_windows": 2},
     {"mmap_lru_windows": 4},
     {"auto_tune": True},
-    {"compression": "int8"},
-    {"ckpt_every": 5},
     {"pipeline_watchdog_seconds": 1.0},
 ], ids=lambda k: next(iter(k)))
 def test_out_of_slice_knob_raises(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HybridConfig(**knob)
+
+
+@pytest.mark.parametrize("knob", [
+    {"use_accel_sampler": True},
+    {"compression": "int8"},
+    {"ckpt_every": 5},
+], ids=lambda k: next(iter(k)))
+def test_sampler_sync_checkpoint_knob_builds(knob):
+    cfg = HybridConfig(**knob)
+    assert all(getattr(cfg, k) == v for k, v in knob.items())
 
 
 @pytest.mark.parametrize("knob", [
@@ -141,6 +148,8 @@ def test_unknown_agg_impl_and_dtype_rejected():
         GNNConfig(agg_impl="cutlass")
     with pytest.raises(ValueError):
         HybridConfig(feature_dtype="float16")
+    with pytest.raises(ValueError):
+        HybridConfig(compression="fp8")
 
 
 @pytest.mark.parametrize("arch,kw,item", [
