@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--scale 1.0] [--iters 10] [--out DIR]
+                          [--spill-dir DIR]
 
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each kernel against its plain PyTorch version on
@@ -77,6 +78,30 @@ Phases, each printing one JSON line:
   depth        the slice at kernel_pipeline_depth 2 against depth 1 from the
                same weights, 3 iterations: losses and shares bit-equal, every
                accelerator combine through K4
+  outofcore    the storage tier at the slice's width: the feature matrix
+               (2,449,029 x 100 f32, 979,611,600 B) spilled by
+               MmapFeatures.spill into 38 blobs of 65,536 rows under
+               --spill-dir (default: a fresh directory under build/, removed
+               at the end; its filesystem type and free bytes printed first,
+               at least twice the matrix required), the spill's seconds and
+               peak buffered rows (<= 65,536); the unique frontiers of 8
+               host-sampled batches gathered through take bit-equal to the
+               dense rows, one cold (after drop_page_cache) and one warm
+               gather timed beside np.take from the dense matrix,
+               madvise_calls > 0; accel-only training over
+               the dense features and over the spill, 4 iterations each:
+               losses bit-equal, feature_tier ram / disk; hybrid without DRM
+               from cold pages, 10 iterations each, prefetch off, on
+               (prefetch_windows=4, dedup history 2) and bounded (and
+               mmap_lru_windows=16): each run's initial shares the perf
+               model's for the disk tier at its prefetch overlap, all three
+               trained from the overlap-1 shares, losses bit-equal, health
+               ok, the bound evicting; then the slice's configuration (the
+               device sampler, DRM) with prefetch_windows=4 for 6
+               iterations.  Every run launches K1 and K2 on each
+               accelerator iteration and reports storage_io(), t_load and
+               t_load_stall per iteration; on tmpfs the line says that its
+               "disk" is RAM
   serve        the LM serving path at llama3.2-1b full width and depth (bf16,
                attn_impl="flash", random weights from a seed): (a) prefill
                4 x 4096 tokens with make_prefill_step, prefill_into_cache,
@@ -105,9 +130,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -142,6 +169,8 @@ K_SOURCES = {
 K6_DEPTHS = (2, 3, 4)        # K6's line reports depth 2
 K4_DEPTHS = (2, 3, 4)        # K4's line reports depth 2
 SHARD_ACCEL = 4
+SPILL_ROWS = 65536           # the outofcore phase's partition (38 blobs)
+LRU_WINDOWS = 16             # its bounded run: fewer windows than a batch
 STAGES = ("t_sa", "t_sc", "t_load", "t_tran", "t_tc", "t_ta")
 LM_ARCH = "llama3.2-1b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
@@ -1321,6 +1350,234 @@ def phase_depth(ds, sage, slice_cfg) -> dict:
     return two["launches"]
 
 
+def mount_of(path: str) -> dict:
+    """The filesystem ``path`` lives on (the longest mount point in
+    /proc/mounts that holds it) and its free bytes."""
+    real = os.path.realpath(path)
+    best = dict(device="?", mount="", fstype="?")
+    with open("/proc/mounts") as fh:
+        for ln in fh:
+            dev, mnt, fstype = ln.split()[:3]
+            mnt = mnt.replace("\\040", " ")
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best["mount"]):
+                best = dict(device=dev, mount=mnt, fstype=fstype)
+    st = os.statvfs(real)
+    return dict(best, free_bytes=st.f_bavail * st.f_frsize)
+
+
+def disk_dataset(ds, spill_dir: str):
+    """``ds`` with its features read from the spill through a fresh mmap
+    view: no window open, no counter moved."""
+    from repro_torch.graph import MmapFeatures
+    return dataclasses.replace(ds, features=MmapFeatures(spill_dir))
+
+
+def run_trainer(ds, gnn, cfg, iters: int, weights=None, pin=None) -> dict:
+    """Build a trainer, give it ``weights`` (the built trainer's own when
+    None) and, when ``pin`` returns shares for it, those initial shares;
+    train ``iters`` iterations with the launch counts reset just before,
+    and keep what the outofcore phase reports.  Every run must launch K1
+    and K2 on each accelerator iteration."""
+    from repro_torch.core import HybridGNNTrainer
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    tr = HybridGNNTrainer(ds, gnn, cfg)
+    build_s = time.perf_counter() - t0
+    if weights is None:
+        weights = {k: v.cpu().numpy() for k, v in tr.params.items()}
+    tr.set_params(weights)
+    a = tr.runtime.assignment
+    model = (a.cpu_batch, a.accel_batch)
+    shares = pin(tr) if pin is not None else None
+    if shares is not None:
+        a.cpu_batch, a.accel_batch = shares
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    hist = tr.train(iters)
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    tr.close()
+    accel = sum(1 for m in hist if m.shares.get("accel0", 0) > 0)
+    check(all(math.isfinite(m.loss) for m in hist),
+          "outofcore: non-finite loss")
+    check(accel > 0 and launches["cache_combine"] >= accel and
+          launches["fused_update"] >= 2 * accel,
+          f"outofcore: K1/K2 launches {launches} for {accel} accelerator "
+          "iterations")
+    return dict(weights=weights, losses=[m.loss for m in hist],
+                build_s=build_s, wall_s=wall, launches=launches,
+                model_shares=model, trained_shares=shares or model,
+                feature_tier=tr.feature_tier,
+                prefetch_overlap=tr.prefetch_overlap,
+                expected_hit_rate=tr.cache.expected_hit_rate,
+                dedup_alpha=tr.measured_dedup_alpha,
+                storage_io=tr.storage_io(), health=tr.health(),
+                history=[dict(it=m.iteration, loss=m.loss, shares=m.shares,
+                              t_load=m.times.t_load,
+                              t_load_stall=m.times.t_load_stall,
+                              t_tran=m.times.t_tran, iter_s=m.iter_time,
+                              device_sampled=m.device_sampled)
+                         for m in hist])
+
+
+def phase_outofcore(ds, sage, slice_cfg, spill_dir: str) -> dict:
+    """The out-of-core storage tier at the slice's full width: the feature
+    matrix spilled to 65,536-row blobs and read back through mmap windows,
+    gathered bit-equal to the dense rows, and trained over: dense against
+    disk, prefetch off / on / bounded from cold pages, and the default
+    configuration (device sampler, DRM) with the prefetcher."""
+    from repro_torch.core.perfmodel import PLATFORMS, initial_task_mapping
+    from repro_torch.graph import MmapFeatures, NumpySampler
+    n, f = ds.features.shape
+    need = n * f * ds.features.dtype.itemsize
+    os.makedirs(spill_dir, exist_ok=False)
+    try:
+        fs = mount_of(spill_dir)
+        on_tmpfs = fs["fstype"] == "tmpfs"
+        emit("outofcore_fs", spill_dir=spill_dir, matrix_bytes=need, **fs)
+        check(fs["free_bytes"] >= 2 * need,
+              f"outofcore: {fs['free_bytes']} B free under {spill_dir} "
+              f"({fs['fstype']}), {2 * need} B needed")
+        res: dict = dict(fs=fs, numpy=np.__version__, note=(
+            "the spill is on tmpfs: its 'disk' is RAM, so the cold and stall "
+            "readings are page-mapping and copy time, not disk reads"
+            if on_tmpfs else f"the spill is on {fs['fstype']}"))
+        # 1. the spill: one 65,536-row partition buffered at a time
+        t0 = time.perf_counter()
+        sp = MmapFeatures.spill(ds.features, spill_dir,
+                                partition_rows=SPILL_ROWS)
+        res["spill_s"] = time.perf_counter() - t0
+        sizes = [os.path.getsize(b) for b in
+                 glob.glob(os.path.join(spill_dir, "part-*.bin"))]
+        res.update(spill_peak_buffered_rows=sp.spill_peak_buffered_rows,
+                   blobs=len(sizes), blob_max_bytes=max(sizes),
+                   bytes_on_disk=sum(sizes),
+                   spill_gb_per_s=sum(sizes) / res["spill_s"] / 1e9)
+        sp.close()
+        check(res["spill_peak_buffered_rows"] <= SPILL_ROWS,
+              f"outofcore: spill buffered {res['spill_peak_buffered_rows']}")
+        check(res["bytes_on_disk"] == need
+              and res["blobs"] == -(-n // SPILL_ROWS)
+              and res["blob_max_bytes"] <= SPILL_ROWS * f * 4,
+              f"outofcore: spill layout {res['blobs']} blobs, "
+              f"{res['bytes_on_disk']} B")
+        # 2. gathers: the unique frontiers of 8 host-sampled batches,
+        # bit-equal to the dense rows; then one cold gather (a fresh view
+        # after drop_page_cache) and the same gather warm
+        mm = MmapFeatures(spill_dir)
+        sampler = NumpySampler(ds.graph, sage.fanouts, seed=7)
+        rng = np.random.default_rng(8)
+        fronts = []
+        for _ in range(8):
+            tgt = rng.integers(0, n, slice_cfg.total_batch)
+            mb = sampler.sample(tgt, ds.labels[tgt])
+            fronts.append(np.unique(mb.frontier(len(sage.fanouts))))
+            check(np.array_equal(mm.take(fronts[-1]),
+                                 ds.features[fronts[-1]]),
+                  "outofcore: mmap rows differ from the dense rows")
+        res["madvise_calls"] = mm.madvise_calls
+        check(mm.madvise_calls > 0, "outofcore: no madvise hint landed "
+              f"(numpy {np.__version__}: an np.memmap without _mmap?)")
+        mm.close()
+        cold = MmapFeatures(spill_dir)
+        cold.drop_page_cache()
+        gather = dict(fadvise_failures=cold.fadvise_failures)
+        for kind in ("cold", "warm"):
+            before = cold.cold_fault_page_bytes
+            t0 = time.perf_counter()
+            rows = cold.take(fronts[0])
+            dt = time.perf_counter() - t0
+            gather[kind] = dict(
+                rows=int(fronts[0].size), ms=dt * 1e3,
+                gb_per_s=rows.nbytes / dt / 1e9,
+                cold_fault_page_bytes=cold.cold_fault_page_bytes - before)
+        cold.close()
+        # the same rows from the dense matrix in RAM: the gather without the
+        # tier's windows and bookkeeping
+        t0 = time.perf_counter()
+        rows = np.take(ds.features, fronts[0], axis=0)
+        dt = time.perf_counter() - t0
+        gather["dense_ram"] = dict(rows=int(fronts[0].size), ms=dt * 1e3,
+                                   gb_per_s=rows.nbytes / dt / 1e9)
+        res["gather"] = gather
+        # 3. dense against disk, bit for bit (accelerator only, host
+        # sampler): the reference's acceptance check at full width
+        base = dataclasses.replace(slice_cfg, use_accel_sampler=False)
+        acc = dataclasses.replace(base, hybrid=False, use_drm=False,
+                                  tfp_depth=2)
+        runs = {"dense": run_trainer(ds, sage, acc, 4)}
+        weights = runs["dense"]["weights"]
+        runs["disk"] = run_trainer(disk_dataset(ds, spill_dir), sage, acc, 4,
+                                   weights)
+        check(runs["disk"]["losses"] == runs["dense"]["losses"],
+              "outofcore: disk losses differ from dense")
+        check((runs["dense"]["feature_tier"], runs["disk"]["feature_tier"])
+              == ("ram", "disk"), "outofcore: feature tiers")
+
+        # 4. prefetch off / on / bounded from cold pages, hybrid, no DRM
+        def model_shares(tr, overlap):
+            m = initial_task_mapping(
+                PLATFORMS[tr.cfg.host_platform],
+                PLATFORMS[tr.cfg.accel_platform], tr.cfg.n_accel,
+                tr.cfg.total_batch, sage.fanouts, sage.layer_dims,
+                model=sage.model, cache_hit_rate=tr.cache.expected_hit_rate,
+                dedup_factor=tr.measured_dedup_alpha, feature_tier="disk",
+                prefetch_overlap=overlap)
+            return (m["cpu"], m["accel_each"])
+        model = {}
+
+        def pin(tr):
+            # the perf model prices prefetch off at overlap 0 and on at 1,
+            # two mappings; all three runs train from the overlap-1 shares
+            # so that they train the same rows
+            model[tr.cfg.prefetch_windows] = (
+                model_shares(tr, tr.prefetch_overlap), model_shares(tr, 1.0))
+            return model_shares(tr, 1.0)
+        hyb = dataclasses.replace(base, hybrid=True, use_drm=False,
+                                  cache_drift_threshold=1.0)
+        for name, knobs in (
+                ("off", {}),
+                ("prefetch", dict(prefetch_windows=4,
+                                  prefetch_dedup_history=2)),
+                ("bounded", dict(prefetch_windows=4,
+                                 prefetch_dedup_history=2,
+                                 mmap_lru_windows=LRU_WINDOWS))):
+            data = disk_dataset(ds, spill_dir)
+            data.features.drop_page_cache()
+            r = run_trainer(data, sage, dataclasses.replace(hyb, **knobs),
+                            10, weights, pin)
+            data.features.close()
+            own, _ = model[knobs.get("prefetch_windows", 0)]
+            check(r["model_shares"] == own,
+                  f"outofcore ({name}): initial shares {r['model_shares']} "
+                  f"against the perf model's {own} for the disk tier")
+            check(r["health"]["status"] == "ok",
+                  f"outofcore ({name}): health {r['health']}")
+            runs[name] = r
+        check(runs["off"]["losses"] == runs["prefetch"]["losses"]
+              == runs["bounded"]["losses"],
+              "outofcore: losses differ with prefetch off / on / bounded")
+        check(runs["bounded"]["storage_io"]["evicted_window_bytes"] > 0,
+              "outofcore: the window bound evicted nothing")
+        # 5. the default configuration (device sampler, DRM) over disk
+        data = disk_dataset(ds, spill_dir)
+        r = run_trainer(data, sage, dataclasses.replace(
+            slice_cfg, prefetch_windows=4), 6, weights)
+        data.features.close()
+        check(any(h["device_sampled"] for h in r["history"]),
+              "outofcore (default): no batch was sampled on the card")
+        check(r["storage_io"]["prefetch_submitted"] > 0,
+              "outofcore (default): nothing submitted to the prefetcher")
+        runs["default"] = r
+        res["runs"] = {k: {f: v for f, v in r.items() if f != "weights"}
+                       for k, r in runs.items()}
+        emit("outofcore", **res)
+        return res
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+
+
 def bf16_close(a: torch.Tensor, b: torch.Tensor, what: str) -> dict:
     """Two bf16 routes of one model: max and mean absolute difference
     within BF16_MAX / BF16_MEAN, values finite."""
@@ -1480,6 +1737,10 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the build log (ptxas -v output) and "
                     "every phase's JSON line (phases.jsonl)")
+    ap.add_argument("--spill-dir", default=None,
+                    help="a directory to create for the outofcore phase's "
+                    "feature spill (980 MB at scale 1.0; removed at the "
+                    "phase's end); default: a fresh one under build/")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1569,6 +1830,8 @@ def main() -> int:
                                      torch.device("cuda", 0))
     shard_launches = phase_shard(ds, sage, host_cfg)
     phase_depth(ds, sage, host_cfg)
+    phase_outofcore(ds, sage, slice_cfg, args.spill_dir or str(
+        ROOT / "build" / f"outofcore-spill-{os.getpid()}"))
     serve_res = phase_serve(torch.device("cuda", 0))
 
     launches = dict(train["launches"])

@@ -65,6 +65,22 @@ averaged gradients before the optimizer, as the reference's sync path
 does, and ``ckpt_every`` hands the parameters and optimizer state to the
 callback given to ``set_checkpoint_callback``.
 
+The out-of-core storage tier runs under the same trainer: over an
+``MmapFeatures`` source (``make_dataset(feature_backend="mmap")``) the
+trainer prices Eq. 7 at storage bandwidth (``feature_tier="disk"``),
+``mmap_lru_windows`` bounds the source's open windows (wired before the
+cache's boot gather), and ``prefetch_windows`` > 0 starts a
+``WindowPrefetcher``: the sample stage hands it each batch's unique
+frontier (an accelerator's cache hits removed) one stage before the load
+stage gathers it, so the gather finds warm pages.  The load stage reports
+the residual cold-page seconds as ``t_load_stall``, which the DRM reads;
+the measured prefetch hit rate re-prices the mapping's ``prefetch_overlap``
+when it drifts.  A prefetch worker that fails past
+``prefetch_restart_budget`` restarts is reported by ``health()`` and the
+loads go on synchronously (``degrade_on_failure=False`` raises instead).
+All of it is invisible to the losses.  ``storage_io()`` reports the tier's
+counters.
+
 Knobs of the reference that this slice does not port raise
 ``NotImplementedError`` naming the ROADMAP item that will port them; none
 is silently ignored.
@@ -88,6 +104,7 @@ from ..graph.featcache import (ShardPlacement, ShardedFeatureCache,
 from ..graph.featload import FeatureLoader, MissBlock, ShardMissBlock
 from ..graph.models import (GNNConfig, init_params, loss_fn,
                             params_from_numpy)
+from ..graph.prefetch import WindowPrefetcher
 from ..graph.sampler import MiniBatch, NumpySampler, sample_minibatch_torch
 from ..graph.storage import GraphDataset
 from ..kernels.ops import assemble_features, assemble_features_sharded
@@ -160,10 +177,6 @@ class HybridConfig:
 
     def __post_init__(self):
         for on, knob, item in (
-                (self.prefetch_windows > 0, "prefetch_windows>0",
-                 "out-of-core storage tier"),
-                (self.mmap_lru_windows > 0, "mmap_lru_windows>0",
-                 "out-of-core storage tier"),
                 (self.auto_tune, "auto_tune=True", "knob autotuner"),
                 (self.pipeline_watchdog_seconds > 0,
                  "pipeline_watchdog_seconds>0", "fault injection and "
@@ -273,6 +286,17 @@ class HybridGNNTrainer:
             if self.device.type == "cuda":
                 self._sample_stream = torch.cuda.Stream(self.device)
 
+        # --- background storage I/O (disk tier) ------------------------------
+        # the window LRU bounds the page cache and the prefetcher pre-faults
+        # a batch's windows one stage before its gather; both are no-ops on
+        # RAM-resident sources.  Wired BEFORE the cache: its boot gather
+        # streams through the source and must already respect the bound
+        src = dataset.feature_source
+        if cfg.mmap_lru_windows > 0 and hasattr(src, "lru_windows"):
+            src.lru_windows = int(cfg.mmap_lru_windows)
+        self.prefetcher: Optional[WindowPrefetcher] = \
+            self._build_prefetcher(cfg.prefetch_windows)
+
         # --- feature store: device hot cache + dedup loader ------------------
         # "sharded" partitions the hot set across the accelerators; below
         # two there is nothing to partition and the cache stays replicated
@@ -292,6 +316,17 @@ class HybridGNNTrainer:
         self.loader = FeatureLoader(dataset, transfer_dtype=cfg.feature_dtype,
                                     cache=self.cache, dedup=cfg.dedup,
                                     recent_batches=cfg.recent_rows_batches)
+        # design-time Eq. 7 overlap: a running prefetcher is assumed to hide
+        # the storage stream (as TFP assumes for the whole load stage); the
+        # re-price reads the measured prefetch hit rate instead, and its
+        # drift alone also triggers one (_maybe_refresh_mapping)
+        self.prefetch_overlap = 1.0 if self.prefetcher is not None else 0.0
+        self._model_prefetch_overlap = self.prefetch_overlap
+        # out-of-core features gather through host storage, not RAM: Eq. 7
+        # is priced at storage bandwidth
+        self.feature_tier = ("disk" if getattr(self.loader.source,
+                                               "is_disk_resident", False)
+                             else "ram")
         # async staged refresh: one stage() gather in flight at most
         self._refresh_thread: Optional[threading.Thread] = None
         self._refresh_error: Optional[BaseException] = None
@@ -321,7 +356,9 @@ class HybridGNNTrainer:
                 cfg.n_accel, cfg.total_batch, gnn_cfg.fanouts,
                 gnn_cfg.layer_dims, model=gnn_cfg.model,
                 cache_hit_rate=hit_rate,
-                dedup_factor=self.measured_dedup_alpha)
+                dedup_factor=self.measured_dedup_alpha,
+                feature_tier=self.feature_tier,
+                prefetch_overlap=self.prefetch_overlap)
         else:
             mapping = {"cpu": 0,
                        "accel_each": cfg.total_batch // max(cfg.n_accel, 1)}
@@ -354,6 +391,19 @@ class HybridGNNTrainer:
                       else v) for k, v in params.items()}
         self.params: Params = params_from_numpy(arrays, self.device)
         self.opt_state = self.optimizer.init(self.params)
+
+    def _build_prefetcher(self, windows: int
+                          ) -> Optional[WindowPrefetcher]:
+        """The background window prefetcher, or None when the knob is off or
+        the source cannot page-fault."""
+        src = self.dataset.feature_source
+        if windows <= 0 or not hasattr(src, "prefetch_rows"):
+            return None
+        return WindowPrefetcher(
+            src, max_queue=int(windows),
+            dedup_history=self.cfg.prefetch_dedup_history,
+            restart_budget=self.cfg.prefetch_restart_budget,
+            raise_on_failure=not self.cfg.degrade_on_failure)
 
     def _probe_dup_factor(self) -> float:
         """alpha = unique-miss / positional-miss frontier rows of one probe
@@ -424,53 +474,95 @@ class HybridGNNTrainer:
         n_dev = (int(round(frac * len(names)))
                  if self._dev_topology is not None else 0)
         t_sc = t_sa = 0.0
+        # a device batch's frontier ids, brought to the host once here: the
+        # prefetch submit below and the load stage's gather both read them
+        p["host_frontier"] = {}
         for i, name in enumerate(names):
             tgt = p["targets"][name]
             labels = self.dataset.labels[tgt]
             t0 = time.perf_counter()
             if i < n_dev:
-                p["minibatch"][name] = self._sample_on_device(tgt, labels)
+                p["minibatch"][name], p["host_frontier"][name] = \
+                    self._sample_on_device(tgt, labels)
                 t_sa += time.perf_counter() - t0
             else:
                 p["minibatch"][name] = self.cpu_sampler.sample(tgt, labels)
                 t_sc += time.perf_counter() - t0
         p["t"]["t_sc"], p["t"]["t_sa"] = t_sc, t_sa
         p["device_sampled"] = tuple(names[:n_dev])
+        self._submit_prefetch(p)
         return item
 
-    def _sample_on_device(self, tgt: np.ndarray,
-                          labels: np.ndarray) -> MiniBatch:
-        """One batch from the device sampler, returned once its work is
-        done (``t_sa`` stops there, as the reference's
-        ``block_until_ready``).  On a card it runs on a stream of its own:
-        waiting for the default stream would also wait for the trainers'
-        kernels queued there.  Since the host has waited, the consumers
-        need no event; the batch is marked as used by the default stream,
-        where the trainer reads it and cross-device copies run, so its
-        memory is not handed back to the sampling stream before then."""
+    def _submit_prefetch(self, p: Dict[str, Any]) -> None:
+        """TFP lookahead into background storage I/O: this batch's frontier
+        is known one stage before its load-stage gather runs, so the ids the
+        gather will touch (unique, minus the rows an accelerator's cache
+        serves; the CPU trainer reads its whole frontier from the source)
+        go to the window prefetcher.  ``submit`` never blocks (a full queue
+        drops).  With ``degrade_on_failure`` a worker dead past its restart
+        budget just stops being fed: loads run synchronously, the overlap
+        re-prices to 0 and ``health()`` reports the component; otherwise
+        ``submit`` raises through the pipeline's stage-failure protocol."""
+        pf = self.prefetcher
+        if pf is None or not p["minibatch"] or pf.failed:
+            return
+        depth = len(self.gnn_cfg.fanouts)
+        parts = []
+        for name, mb in p["minibatch"].items():
+            ids = p["host_frontier"].get(name)
+            ids = np.unique(mb.frontier(depth) if ids is None else ids)
+            if name != "cpu" and self.cache is not None:
+                ids = ids[self.cache.slot_of[ids] < 0]
+            parts.append(ids)
+        pf.submit(np.unique(np.concatenate(parts)))
+        if pf.failed:
+            self._note_degraded(
+                "prefetcher", pf.errors[0] if pf.errors else None,
+                action="window prefetch disabled; loads run synchronously "
+                       "and prefetch_overlap re-prices to 0")
+
+    def _sample_on_device(self, tgt: np.ndarray, labels: np.ndarray
+                          ) -> Tuple[MiniBatch, np.ndarray]:
+        """One batch from the device sampler and its innermost frontier on
+        the host, returned once the sampler's work is done (``t_sa`` stops
+        there, as the reference's ``block_until_ready``).  On a card it runs
+        on a stream of its own, the frontier's copy to pinned host memory
+        included, and one synchronize of that stream covers both: waiting
+        for the default stream would also wait for the trainers' kernels
+        queued there.  Since the host has waited, the consumers need no
+        event; the batch is marked as used by the default stream, where the
+        trainer reads it and cross-device copies run, so its memory is not
+        handed back to the sampling stream before then."""
         dev = self.device
         with torch.cuda.stream(self._sample_stream):
             mb = sample_minibatch_torch(
                 self._sample_gen, *self._dev_topology,
                 to_device(tgt, dev), to_device(labels, dev),
                 self.gnn_cfg.fanouts)
+            front = mb.frontier(len(self.gnn_cfg.fanouts))
+            if self._sample_stream is not None:
+                host = torch.empty(front.shape, dtype=front.dtype,
+                                   pin_memory=True)
+                front = host.copy_(front, non_blocking=True)
         if self._sample_stream is not None:
             self._sample_stream.synchronize()
             mb.record_stream(torch.cuda.default_stream(dev))
-        return mb
+        return mb, front.numpy()
 
     def _stage_load(self, item: PipelineItem) -> PipelineItem:
         p = item.payload
         self.loader.num_threads = self.runtime.assignment.threads.get("load", 1)
+        host = p["host_frontier"]
         t0 = time.perf_counter()
+        stall0 = self._load_stall()
         # sharded plane: ONE union lookup and host gather serve every
         # accelerator trainer of the batch (each unique miss row gathered
         # once and handed to each trainer that needs it)
         accel_mbs = {n: mb for n, mb in p["minibatch"].items() if n != "cpu"}
         if self._sharded and accel_mbs:
             ordinals = {n: int(n[len("accel"):]) for n in accel_mbs}
-            p["features"].update(
-                self.loader.load_union(accel_mbs, ordinals, pin=True))
+            p["features"].update(self.loader.load_union(
+                accel_mbs, ordinals, pin=True, frontiers=host))
         for name, mb in p["minibatch"].items():
             if self._sharded and name != "cpu":
                 continue      # served by the union gather above
@@ -482,12 +574,21 @@ class HybridGNNTrainer:
                 p["features"][name] = self.loader.load_compact(
                     mb, pin=self.cache is not None,
                     recent_key=(name if self.cfg.recent_rows_batches > 0
-                                else None))
+                                else None),
+                    frontier=host.get(name))
             else:
                 p["features"][name] = self.loader.load(
-                    mb, to_device=(name != "cpu"))
+                    mb, to_device=(name != "cpu"), frontier=host.get(name))
         p["t"]["t_load"] = time.perf_counter() - t0
+        # the storage stall share of the load (cold pages the prefetcher did
+        # not hide), which the DRM reads through StageTimes
+        p["t"]["t_load_stall"] = self._load_stall() - stall0
         return item
+
+    def _load_stall(self) -> float:
+        """The loader's cumulative cold-page seconds, both windows."""
+        return (self.loader.snapshot("stats").stall_seconds
+                + self.loader.snapshot("host_stats").stall_seconds)
 
     def _ship_rows(self, rows: torch.Tensor, bucket_cap: int,
                    dev: torch.device) -> torch.Tensor:
@@ -675,6 +776,21 @@ class HybridGNNTrainer:
         dedup_saved_rows = stats.dedup_saved_bytes // self.cache.row_bytes
         return 1.0 - dedup_saved_rows / miss_positions
 
+    def _measured_prefetch_overlap(self) -> float:
+        """Eq. 7's overlap term from measurement: the fraction of the load
+        stage's window touches the prefetcher served warm (the design-time
+        estimate before any disk traffic)."""
+        if self.prefetcher is None or self.prefetcher.failed:
+            # a dead prefetcher hides nothing: every disk touch is a cold
+            # fault, so the mapping prices the full storage penalty
+            return 0.0
+        src = self.loader.source
+        touches = (getattr(src, "prefetch_hit_windows", 0)
+                   + getattr(src, "prefetch_miss_windows", 0))
+        if touches == 0:
+            return self.prefetch_overlap
+        return float(src.prefetch_hit_rate)
+
     def _sharded_pricing(self, measured: float) -> Tuple[float, float, float]:
         """Split a measured hit rate into its (local, peer) parts and derive
         the union multicast factor from the window stats: the sharded
@@ -697,6 +813,7 @@ class HybridGNNTrainer:
         """Re-run the initial task mapping with a measured hit rate and
         alpha and hand the shares to the runtime (the DRM fine-tunes from
         there)."""
+        overlap = self._measured_prefetch_overlap()
         local, peer, uf = self._sharded_pricing(measured)
         mapping = initial_task_mapping(
             PLATFORMS[self.cfg.host_platform],
@@ -704,8 +821,10 @@ class HybridGNNTrainer:
             self.cfg.n_accel, self.cfg.total_batch,
             self.gnn_cfg.fanouts, self.gnn_cfg.layer_dims,
             model=self.gnn_cfg.model, cache_hit_rate=local,
-            dedup_factor=alpha, peer_hit_rate=peer, union_factor=uf,
+            dedup_factor=alpha, feature_tier=self.feature_tier,
+            prefetch_overlap=overlap, peer_hit_rate=peer, union_factor=uf,
             refresh_bytes_per_iter=self._refresh_bytes_per_iter)
+        self._model_prefetch_overlap = overlap
         a = self.runtime.assignment
         n = max(self.cfg.n_accel, 1)
         a.accel_batch = mapping["accel_each"]
@@ -850,16 +969,25 @@ class HybridGNNTrainer:
     def _maybe_refresh_mapping(self) -> bool:
         """When the loader's measured transfer-path hit rate drifts more
         than ``cache_drift_threshold`` from the rate the mapping was priced
-        with, re-price it with the measured rate and alpha.  Returns True
-        when it did."""
+        with, re-price it with the measured rate and alpha.  The measured
+        prefetch overlap has its own drift trigger: an underperforming
+        prefetcher (queue-full drops, windows evicted before their gather)
+        re-prices the storage penalty even when the hit rate is stable.
+        Returns True when it re-priced."""
         if not (self.cfg.hybrid and self.cache is not None):
             return False
         stats = self.loader.snapshot("window")
         if stats.total_rows == 0:
             return False
         measured = stats.hit_rate
-        if abs(measured - self._model_hit_rate) <= \
-                self.cfg.cache_drift_threshold:
+        hit_drift = abs(measured - self._model_hit_rate) > \
+            self.cfg.cache_drift_threshold
+        overlap_drift = (
+            self.prefetcher is not None
+            and abs(self._measured_prefetch_overlap()
+                    - self._model_prefetch_overlap)
+            > self.cfg.cache_drift_threshold)
+        if not (hit_drift or overlap_drift):
             return False
         self._reprice_mapping(measured, self._window_alpha(stats))
         return True
@@ -880,7 +1008,8 @@ class HybridGNNTrainer:
                 t_sa=p["t"].get("t_sa", 0.0), t_sc=p["t"].get("t_sc", 0.0),
                 t_load=p["t"].get("t_load", 0.0),
                 t_tran=p["t"].get("t_tran", 0.0),
-                t_tc=ttimes["t_tc"], t_ta=ttimes["t_ta"])
+                t_tc=ttimes["t_tc"], t_ta=ttimes["t_ta"],
+                t_load_stall=p["t"].get("t_load_stall", 0.0))
             self.runtime.end_iteration(times)
             self._iters_done += 1
             self._iters_since_refresh += 1
@@ -905,15 +1034,16 @@ class HybridGNNTrainer:
             if (self.cfg.ckpt_every and self._ckpt_cb
                     and (p["iteration"] + 1) % self.cfg.ckpt_every == 0):
                 self._ckpt_cb(p["iteration"], self.params, self.opt_state)
-        # a stage that failed after the last boundary would otherwise vanish
+        # a background failure after the last boundary (the final staged
+        # gather, the final prefetch) would otherwise vanish
         self._raise_background_errors()
         return self.history
 
     def _raise_background_errors(self) -> None:
-        """Surface a latched failure of a finished async ``stage()``
-        through the refresh-failure protocol: it raises in fail-fast mode
-        (``degrade_on_failure=False``) and is recorded for ``health()``
-        otherwise."""
+        """Surface latched background failures: a finished async
+        ``stage()`` through the refresh-failure protocol, and a prefetch
+        worker's error.  Fail-fast mode (``degrade_on_failure=False``)
+        raises; otherwise they are recorded for ``health()``."""
         if (self._refresh_thread is None
                 or not self._refresh_thread.is_alive()):
             self._refresh_thread = None
@@ -922,10 +1052,25 @@ class HybridGNNTrainer:
             if err is not None:
                 self._handle_refresh_failure(
                     err, context="async cache-refresh stage() failed")
+        pf = self.prefetcher
+        if pf is not None and pf.error is not None:
+            if not self.cfg.degrade_on_failure:
+                err, pf.error = pf.error, None
+                raise RuntimeError(
+                    "window prefetch worker failed; storage tier is broken"
+                ) from err
+            if pf.failed:
+                self._note_degraded(
+                    "prefetcher", pf.errors[0] if pf.errors else pf.error,
+                    action="window prefetch disabled; loads run "
+                           "synchronously")
 
     def close(self) -> None:
-        """Join an in-flight refresh stage, release the loader's gather
-        pool, then surface a failure the stage latched."""
+        """Stop the window prefetcher, join an in-flight refresh stage,
+        release the loader's gather pool, then surface any failure they
+        latched.  Idempotent once the latched errors have raised."""
+        if self.prefetcher is not None:
+            self.prefetcher.close()
         t = self._refresh_thread
         if t is not None:
             t.join(timeout=30.0)
@@ -949,14 +1094,35 @@ class HybridGNNTrainer:
 
     def health(self) -> Dict[str, Any]:
         """Degraded-mode report: ``status`` ("ok" until a component
-        degraded for good), one event per degraded component, and the
-        dynamic refresh's failure counters."""
+        degraded for good), one event per degraded component, and live
+        counters: the prefetcher's supervision, the dynamic refresh's
+        failure budget and the storage tier's retries, fallbacks and hint
+        failures."""
         comp: Dict[str, Any] = {}
+        pf = self.prefetcher
+        if pf is not None:
+            comp["prefetcher"] = {
+                "healthy": pf.healthy,
+                "failed": pf.failed,
+                "restarts": int(pf.restarts),
+                "errors": len(pf.errors),
+            }
         if self.cache is not None and self.cfg.cache_refresh:
             comp["refresh"] = {
                 "enabled": not self._refresh_disabled,
                 "stage_failures": int(self.cache.stage_failures),
                 "consecutive_failures": int(self._refresh_failures),
+            }
+        src = self.loader.source
+        if hasattr(src, "io_retries"):
+            comp["storage"] = {
+                "io_errors": int(src.io_errors),
+                "io_retries": int(src.io_retries),
+                "io_retry_seconds": float(src.io_retry_seconds),
+                "fallback_gathers": int(src.fallback_gathers),
+                "fallback_rows": int(src.fallback_rows),
+                "madvise_failures": int(src.madvise_failures),
+                "fadvise_failures": int(src.fadvise_failures),
             }
         with self._state_lock:
             degraded = sorted(self._degraded)
@@ -969,6 +1135,43 @@ class HybridGNNTrainer:
         }
 
     # ------------------------------------------------------------- reporting
+
+    def storage_io(self) -> Dict[str, float]:
+        """The storage tier's accounting, the reference's keys (zeros on RAM
+        tiers): the mmap source's prefetch, eviction and fault-tolerance
+        counters, the load stage's cumulative stall the prefetcher did not
+        hide, and the prefetcher's own counters when it runs."""
+        src = self.loader.source
+        out = {
+            "load_stall_seconds": self._load_stall(),
+            "cold_fault_page_bytes":
+                float(getattr(src, "cold_fault_page_bytes", 0)),
+            "prefetched_window_bytes":
+                float(getattr(src, "prefetched_window_bytes", 0)),
+            "evicted_window_bytes":
+                float(getattr(src, "evicted_window_bytes", 0)),
+            "window_evictions": float(getattr(src, "window_evictions", 0)),
+            "pin_blocked_evictions":
+                float(getattr(src, "pin_blocked_evictions", 0)),
+            "open_windows": float(getattr(src, "open_windows", 0)),
+            "prefetch_hit_rate":
+                float(getattr(src, "prefetch_hit_rate", 0.0)),
+            "io_retries": float(getattr(src, "io_retries", 0)),
+            "io_retry_seconds": float(getattr(src, "io_retry_seconds", 0.0)),
+            "io_errors": float(getattr(src, "io_errors", 0)),
+            "fallback_gathers": float(getattr(src, "fallback_gathers", 0)),
+            "fallback_rows": float(getattr(src, "fallback_rows", 0)),
+            "madvise_failures": float(getattr(src, "madvise_failures", 0)),
+            "fadvise_failures": float(getattr(src, "fadvise_failures", 0)),
+        }
+        pf = self.prefetcher
+        if pf is not None:
+            out["prefetch_submitted"] = float(pf.submitted)
+            out["prefetch_completed"] = float(pf.completed)
+            out["prefetch_dropped"] = float(pf.dropped)
+            out["resubmitted_rows_skipped"] = float(
+                pf.resubmitted_rows_skipped)
+        return out
 
     def mean_mteps(self, skip: int = 2) -> float:
         hist = self.history[skip:] or self.history

@@ -259,8 +259,8 @@ class FeatureCache:
         self.row_bytes = wire_row_bytes(feat_dim, transfer_dtype)
         self.slot_of = np.full(num_nodes, -1, dtype=np.int32)
         self.slot_of[self.cached_ids] = np.arange(capacity, dtype=np.int32)
-        self._host_rows = to_transfer_dtype(source.take(self.cached_ids),
-                                            transfer_dtype)
+        self._host_rows = to_transfer_dtype(
+            self._maintenance_take(self.cached_ids), transfer_dtype)
         self._expected_hit_rate = (float(hotness[self.cached_ids].sum())
                                    / max(float(hotness.sum()), 1e-12))
         self.stats = CacheStats()        # lifetime totals
@@ -300,6 +300,17 @@ class FeatureCache:
         # keep_versions stays the hard bound either way
         self._inflight: Dict[int, int] = {}
         self._pin_used = False
+
+    def _maintenance_take(self, rows: np.ndarray) -> np.ndarray:
+        """Gather rows as cache maintenance (the boot block, a refresh's
+        admitted rows): on a source with stall accounting (``MmapFeatures``)
+        they stay out of the cold/warm and prefetch-hit counters, which
+        measure the load stage and feed the mapping's re-price."""
+        ctx = getattr(self.source, "untracked_gathers", None)
+        if ctx is None:
+            return self.source.take(rows)
+        with ctx():
+            return self.source.take(rows)
 
     # ------------------------------------------------------------- plumbing
 
@@ -589,7 +600,7 @@ class FeatureCache:
             host_dtype = self._host_rows.dtype
         if n_swap:
             try:
-                rows = to_transfer_dtype(self.source.take(top),
+                rows = to_transfer_dtype(self._maintenance_take(top),
                                          self.transfer_dtype)
             except Exception:
                 with self._lock:

@@ -33,8 +33,20 @@ in-batch duplicates, ``union_saved_bytes`` rows shared between trainers of
 a union gather, ``recent_saved_bytes`` rows still resident from a recent
 batch), so shipped + saved bytes always rebuild the one-row-per-position
 baseline (plus bucket padding, tracked in ``padding_bytes``) — the same
-accounting as the reference.  Stall accounting for disk tiers is not
-ported yet (ROADMAP).
+accounting as the reference.
+
+On a disk-tier source (``MmapFeatures``) every load also records
+``stall_seconds``: the gather threads' seconds on cold pages (the source's
+``cold_gather_seconds`` delta around the gather), the share of the load the
+window prefetcher did not hide.  When the source is partitioned (anything
+with ``partition_rows``), the chunked gather cuts the request only at
+partition boundaries, so each pool thread faults its own windows, and
+scatters the rows back into request order.
+
+A batch sampled on the device carries its frontier as a device tensor: the
+trainer brings it to the host once, in the sample stage, and hands it to
+``load`` / ``load_compact`` / ``load_union`` (``frontier=`` /
+``frontiers=``), so the loader syncs with the device no second time.
 """
 from __future__ import annotations
 
@@ -79,6 +91,12 @@ class LoadStats:
     recent_rows: int = 0     # unique rows skipped: still device-resident
                              #   from a recent batch (cross-iteration LRU)
     recent_saved_bytes: int = 0  # transfer bytes those skips avoided
+    stall_seconds: float = 0.0  # gather-thread seconds spent faulting cold
+                             #   storage pages (disk-tier gathers the window
+                             #   prefetcher did not pre-warm), summed over
+                             #   the chunked gather's pool threads, so it can
+                             #   exceed the wall-clock `seconds`; 0 on
+                             #   RAM-resident sources
 
     @property
     def hit_rate(self) -> float:
@@ -217,34 +235,82 @@ class FeatureLoader:
             self._pool = None
             self._pool_size = 0
 
+    def _source_stall(self) -> float:
+        """Cumulative cold-page seconds the source reports (0 on RAM-resident
+        sources): the delta around a gather is its storage stall.  The pool
+        threads finish inside the gather call, so the delta is race-free
+        while loads run from one stage thread (the pipeline's contract)."""
+        return float(getattr(self.source, "cold_gather_seconds", 0.0))
+
+    def _split_chunks(self, rows: np.ndarray
+                      ) -> Tuple[List[np.ndarray], Optional[np.ndarray]]:
+        """Split a gather into per-thread chunks.
+
+        For a partitioned source (anything with ``partition_rows``) the
+        split is partition-aligned: the rows are grouped by partition and
+        cut only at partition boundaries, so each pool thread faults its own
+        mmap windows (an ``array_split`` of a frontier in arbitrary order
+        makes every thread touch every window).  Returns ``(chunks,
+        order)``, ``order`` being the permutation that sorted the rows
+        (``None`` for the order-preserving split of other sources)."""
+        prows = int(getattr(self.source, "partition_rows", 0) or 0)
+        if prows <= 0:
+            return np.array_split(rows, self.num_threads), None
+        part_id = rows // prows
+        order = np.argsort(part_id, kind="stable")
+        sorted_rows = rows[order]
+        n = rows.shape[0]
+        # candidate cuts: the partition boundaries of the sorted stream; the
+        # first one at or after each equal-share target
+        bounds = np.flatnonzero(np.diff(part_id[order])) + 1
+        cand = np.concatenate([bounds, [n]])
+        targets = np.arange(1, self.num_threads) * n // self.num_threads
+        cuts = np.unique(cand[np.searchsorted(cand, targets)])
+        chunks = [c for c in np.split(sorted_rows, cuts) if c.shape[0]]
+        return chunks, order
+
     def _gather(self, rows: np.ndarray) -> np.ndarray:
         if self.num_threads == 1 or rows.shape[0] < 2 * self.num_threads:
             return self.source.take(rows)
-        # chunked gather: numpy gathers in several OS threads overlap
-        chunks = np.array_split(rows, self.num_threads)
+        # chunked gather: numpy gathers in several OS threads overlap page
+        # faults
+        chunks, order = self._split_chunks(rows)
         parts = list(self._get_pool().map(self.source.take, chunks))
-        return np.concatenate(parts, axis=0)
+        gathered = np.concatenate(parts, axis=0)
+        if order is None:
+            return gathered
+        out = np.empty_like(gathered)
+        out[order] = gathered      # scatter back into request order
+        return out
 
-    def _frontier(self, batch: MiniBatch) -> np.ndarray:
-        """The batch's innermost frontier as host ids: a batch sampled on
-        the device brings it to the host once, since the loader classifies
-        and gathers on the host."""
+    def _frontier(self, batch: MiniBatch,
+                  frontier: Optional[np.ndarray] = None) -> np.ndarray:
+        """The batch's innermost frontier as host ids: ``frontier`` when the
+        caller already brought it to the host, else a device batch's ids
+        come over here, since the loader classifies and gathers on the
+        host."""
+        if frontier is not None:
+            return np.asarray(frontier)
         f = batch.frontier(len(batch.fanouts))
         return f.cpu().numpy() if isinstance(f, torch.Tensor) else \
             np.asarray(f)
 
-    def load(self, batch: MiniBatch, to_device: bool = True) -> torch.Tensor:
+    def load(self, batch: MiniBatch, to_device: bool = True,
+             frontier: Optional[np.ndarray] = None) -> torch.Tensor:
         """Gather features for the innermost frontier (layer-0 inputs).
         ``to_device=False`` marks a CPU-trainer load, accounted in
-        ``host_stats`` since its rows never cross the interconnect."""
+        ``host_stats`` since its rows never cross the interconnect;
+        ``frontier`` is the batch's frontier already on the host."""
         t0 = time.perf_counter()
-        frontier = self._frontier(batch)
-        x = to_transfer_dtype(self._gather(frontier), self.transfer_dtype)
+        stall0 = self._source_stall()
+        ids = self._frontier(batch, frontier)
+        x = to_transfer_dtype(self._gather(ids), self.transfer_dtype)
         dt = time.perf_counter() - t0
         n = int(x.shape[0])
         self._account("stats" if to_device else "host_stats",
                       LoadStats(rows=n, bytes=_nbytes(x), seconds=dt,
-                                total_rows=n, unique_rows=n))
+                                total_rows=n, unique_rows=n,
+                                stall_seconds=self._source_stall() - stall0))
         return x
 
     def note_transfer_padding(self, rows: int, nbytes: int) -> None:
@@ -308,7 +374,8 @@ class FeatureLoader:
         return miss[fresh_mask], sources, new_miss_index
 
     def load_compact(self, batch: MiniBatch, pin: bool = False,
-                     recent_key: object = None) -> MissBlock:
+                     recent_key: object = None,
+                     frontier: Optional[np.ndarray] = None) -> MissBlock:
         """Deduped transfer-path load: gather one row per unique miss id.
 
         With a cache only the frontier's unique ids are classified and only
@@ -322,10 +389,12 @@ class FeatureLoader:
         0) engages the recent-rows LRU: misses still resident on that
         consumer's device are neither gathered nor shipped, ``recent`` says
         where the combine re-reads them, and ``shipped`` registers this
-        batch's fresh rows for later batches.
+        batch's fresh rows for later batches.  ``frontier`` is the batch's
+        frontier already on the host.
         """
         t0 = time.perf_counter()
-        frontier = self._frontier(batch)
+        stall0 = self._source_stall()
+        frontier = self._frontier(batch, frontier)
         if self.cache is not None:
             look = self.cache.lookup(frontier, dedup=self.dedup,
                                      record=False, pin=pin)
@@ -355,7 +424,8 @@ class FeatureLoader:
             hit_rows=look.num_hit,
             saved_bytes=look.num_hit * row_bytes,
             dedup_saved_bytes=look.dup_miss_rows * row_bytes,
-            recent_rows=n_recent, recent_saved_bytes=n_recent * row_bytes))
+            recent_rows=n_recent, recent_saved_bytes=n_recent * row_bytes,
+            stall_seconds=self._source_stall() - stall0))
         shipped = None
         if use_recent:
             # the lookup now addresses the combined source layout; this
@@ -373,8 +443,9 @@ class FeatureLoader:
                          shipped=shipped)
 
     def load_union(self, batches: Dict[str, MiniBatch],
-                   ordinals: Dict[str, int],
-                   pin: bool = False) -> Dict[str, ShardMissBlock]:
+                   ordinals: Dict[str, int], pin: bool = False,
+                   frontiers: Optional[Dict[str, np.ndarray]] = None
+                   ) -> Dict[str, ShardMissBlock]:
         """Sharded-plane load: ONE host gather for the union of every
         accelerator trainer's fresh-miss set.
 
@@ -389,14 +460,17 @@ class FeatureLoader:
         the accelerator interconnect (``ici_bytes``).  ``union_saved_bytes``
         is the PCIe traffic avoided against independent per-trainer dedup
         gathers.  Per-shard stats and hotness are recorded only after the
-        gather succeeded, as in ``load_compact``."""
+        gather succeeded, as in ``load_compact``.  ``frontiers`` holds the
+        batches' frontiers already on the host (by name, any subset)."""
         cache = self.cache
         if not isinstance(cache, ShardedFeatureCache):
             raise RuntimeError("load_union requires a ShardedFeatureCache")
         t0 = time.perf_counter()
-        frontiers = {name: self._frontier(b) for name, b in batches.items()}
-        union = cache.lookup_union(frontiers, ordinals, pin=pin,
-                                   record=False)
+        stall0 = self._source_stall()
+        host = frontiers or {}
+        ids = {name: self._frontier(b, host.get(name))
+               for name, b in batches.items()}
+        union = cache.lookup_union(ids, ordinals, pin=pin, record=False)
         fresh_sets = [sl.look.miss_ids
                       for sl in union.per_trainer.values()
                       if sl.look.miss_ids.shape[0]]
@@ -437,5 +511,6 @@ class FeatureLoader:
             peer_rows=tot_peer_rows,
             peer_saved_bytes=tot_peer_pos * row_bytes,
             union_saved_bytes=multicast_extra * row_bytes,
-            ici_bytes=(tot_peer_rows + multicast_extra) * row_bytes))
+            ici_bytes=(tot_peer_rows + multicast_extra) * row_bytes,
+            stall_seconds=self._source_stall() - stall0))
         return out

@@ -654,3 +654,70 @@ def test_trainer_samples_on_card(cuda):
         assert list(m.device_sampled) == names[:round(0.5 * len(names))]
         assert (m.times.t_sa > 0) == bool(m.device_sampled)
     assert any(m.device_sampled for m in hist)
+
+
+def test_trainer_over_mmap_on_card_bit_equal_to_dense(cuda, tmp_path):
+    """Accel-only training on the card over the mmap spill gives the dense
+    run's losses bit for bit (the backend only moves where the rows are
+    read from), prices the disk tier, and launches K1 and K2."""
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5),
+                  agg_impl="kernel_fused")
+    runs = {}
+    for backend in ("dense", "mmap"):
+        kw = ({} if backend == "dense" else
+              dict(spill_dir=str(tmp_path / "spill"), partition_rows=4096))
+        ds = make_dataset("ogbn-products", scale=0.01, seed=0,
+                          feature_backend=backend, **kw)
+        tr = HybridGNNTrainer(ds, g, HybridConfig(
+            total_batch=512, hybrid=False, use_drm=False, tfp_depth=2,
+            cache_fraction=0.2, use_accel_sampler=False,
+            accel_platform="rtx-a5000"))
+        if runs:
+            tr.set_params(runs["dense"][2])
+        params0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        ops.reset_kernel_launches()
+        hist = tr.train(4)
+        tr.close()
+        runs[backend] = ([m.loss for m in hist], ops.kernel_launches(),
+                         params0, tr.feature_tier)
+    assert runs["mmap"][0] == runs["dense"][0]
+    assert (runs["dense"][3], runs["mmap"][3]) == ("ram", "disk")
+    for backend in runs:
+        assert runs[backend][1]["cache_combine"] >= 4
+        assert runs[backend][1]["fused_update"] >= 2 * 4
+
+
+def test_trainer_prefetch_on_card_bit_equal_to_off(cuda, tmp_path):
+    """Hybrid training on the card over the mmap spill with the window
+    prefetcher (and then a window LRU bound) gives the prefetch-off run's
+    losses bit for bit from the same shares, and the prefetcher ran."""
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5),
+                  agg_impl="kernel_fused")
+    runs = {}
+    shares = None
+    for name, knobs in (("on", dict(prefetch_windows=4)),
+                        ("bounded", dict(prefetch_windows=4,
+                                         mmap_lru_windows=4)),
+                        ("off", {})):
+        ds = make_dataset("ogbn-products", scale=0.01, seed=0,
+                          feature_backend="mmap", partition_rows=4096,
+                          spill_dir=str(tmp_path / name))
+        tr = HybridGNNTrainer(ds, g, HybridConfig(
+            total_batch=512, use_drm=False, tfp_depth=2, cache_fraction=0.2,
+            use_accel_sampler=False, cache_drift_threshold=1.0,
+            accel_platform="rtx-a5000", **knobs))
+        a = tr.runtime.assignment
+        if shares is None:
+            shares = (a.cpu_batch, a.accel_batch)
+            w0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        else:
+            tr.set_params(w0)
+            a.cpu_batch, a.accel_batch = shares   # off prices overlap 0
+        hist = tr.train(4)
+        tr.close()
+        runs[name] = ([m.loss for m in hist], tr.storage_io(), tr.health())
+    assert runs["on"][0] == runs["bounded"][0] == runs["off"][0]
+    assert runs["on"][1]["prefetch_submitted"] > 0
+    assert runs["bounded"][1]["open_windows"] <= \
+        4 + runs["bounded"][1]["pin_blocked_evictions"]
+    assert all(r[2]["status"] == "ok" for r in runs.values())

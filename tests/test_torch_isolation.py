@@ -82,15 +82,25 @@ def test_trainer_default_device_requires_cuda(monkeypatch):
         HybridGNNTrainer(ds, g, HybridConfig(total_batch=64))
 
 
+@pytest.mark.parametrize("knob,item", [
+    ({"auto_tune": True}, "knob autotuner"),
+    ({"pipeline_watchdog_seconds": 1.0}, "fault injection"),
+], ids=["auto_tune", "pipeline_watchdog_seconds"])
+def test_out_of_slice_knob_raises(knob, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP, port queue: "
+                                                  f"{item}"):
+        HybridConfig(**knob)
+
+
 @pytest.mark.parametrize("knob", [
     {"prefetch_windows": 2},
     {"mmap_lru_windows": 4},
-    {"auto_tune": True},
-    {"pipeline_watchdog_seconds": 1.0},
-], ids=lambda k: next(iter(k)))
-def test_out_of_slice_knob_raises(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HybridConfig(**knob)
+    {"prefetch_windows": 4, "prefetch_dedup_history": 0,
+     "mmap_lru_windows": 16},
+], ids=lambda k: "+".join(k))
+def test_storage_tier_knob_builds(knob):
+    cfg = HybridConfig(**knob)
+    assert all(getattr(cfg, k) == v for k, v in knob.items())
 
 
 @pytest.mark.parametrize("knob", [
@@ -138,9 +148,14 @@ def test_fault_injector_raises():
 
 
 @pytest.mark.parametrize("backend", ["partitioned", "mmap"])
-def test_unported_feature_backend_raises(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_dataset("ogbn-products", scale=0.0005, feature_backend=backend)
+def test_storage_feature_backend_builds(backend, tmp_path):
+    ds = make_dataset("ogbn-products", scale=0.0005, feature_backend=backend,
+                      partition_rows=256, spill_dir=str(tmp_path / "spill"))
+    assert type(ds.features).__name__ == {"partitioned": "PartitionedFeatures",
+                                          "mmap": "MmapFeatures"}[backend]
+    assert ds.features.shape == (ds.num_nodes, 100)
+    with pytest.raises(ValueError, match="unknown feature_backend"):
+        make_dataset("ogbn-products", scale=0.0005, feature_backend="nvme")
 
 
 def test_unknown_agg_impl_and_dtype_rejected():
