@@ -101,7 +101,49 @@ Phases, each printing one JSON line:
                iterations.  Every run launches K1 and K2 on each
                accelerator iteration and reports storage_io(), t_load and
                t_load_stall per iteration; on tmpfs the line says that its
-               "disk" is RAM
+               "disk" is RAM.  The spill stays for the next two phases
+  faults       the failure model at full width, host sampler, no DRM, over
+               the spill unless marked: (a) the reference's transient
+               storage schedule (storage.take at calls 0 and 7-8,
+               storage.prefetch at 1) against a clean twin, 2 accelerators
+               on cuda:0, prefetch_windows=4, 6 iterations: losses
+               bit-equal, >= 3 retries, errors and raised faults; (b) the
+               prefetch worker killed from its third item with a restart
+               budget of 1, 8 iterations: finite losses, health degraded
+               with a "synchronously" prefetcher event, one restart, the
+               measured overlap 0; (c) a permanent refresh.stage fault with
+               cache_refresh on, drift threshold 0 and a failure budget of
+               2, against refresh off, 6 iterations: refresh disabled,
+               version 0, no K5 launch, losses bit-equal; (d) over the
+               dense features, hybrid, 2 accelerators, sequential stages,
+               accel0 killed at iteration 3 of 8: finite losses, accel0 in
+               health's failed trainers, the shares adding up to 1,024 over
+               the survivors, K2 twice per iteration from iteration 3 and
+               K1 once from iteration 4 (accel1 only; iteration 3's combine
+               ran before accel0 died); (e) last, a 4 s pipeline.load delay
+               at its third call under a 1 s watchdog: PipelineStallError
+               naming "load" within 10 s, its diagnosis time, the stranded
+               stage thread joined.  K1 once and K2 twice per accelerator
+               batch in every training run
+  autotune     benchmarks/bench_autotune.py's three knob sets on the slice
+               over the spill (1 accelerator, accelerator only, host
+               sampler, no DRM), 36 iterations each: hand (prefetch 4, LRU
+               8, threads 2/2/2), bad-static (prefetch 0, LRU 1, threads
+               4/1/1) and bad-auto (bad-static with auto_tune,
+               autotune_interval 3 and cache_refresh): bad-auto's losses
+               bit-equal to bad-static's, every knob state inside its
+               bounds, K1/K2 on every iteration (K5 counted); reads the
+               trials, accepted moves, rollbacks, final knobs, each move's
+               predicted and measured ms, each run's steady iteration time
+               (the mean of the last third, its worst dropped), bad-auto
+               and bad-static against hand, and the host ms of every
+               boundary where a window closed
+  cli          python -m repro_torch.launch.train_gnn's main on the card:
+               ogbn-products at scale 0.01, 12 iterations, 2 accelerators,
+               pallas_fused, the mmap tier with prefetch, a 20 % cache with
+               refresh, --auto-tune, --inject-failure 3 and a two-spec
+               --fault-schedule: finite losses, accel0 among the survived
+               failures, one "health:" line, K1/K2 launched
   serve        the LM serving path at llama3.2-1b full width and depth (bf16,
                attn_impl="flash", random weights from a seed): (a) prefill
                4 x 4096 tokens with make_prefill_step, prefill_into_cache,
@@ -1426,156 +1468,528 @@ def phase_outofcore(ds, sage, slice_cfg, spill_dir: str) -> dict:
     matrix spilled to 65,536-row blobs and read back through mmap windows,
     gathered bit-equal to the dense rows, and trained over: dense against
     disk, prefetch off / on / bounded from cold pages, and the default
-    configuration (device sampler, DRM) with the prefetcher."""
+    configuration (device sampler, DRM) with the prefetcher.  The spill
+    stays for the faults and autotune phases; ``main`` removes it."""
     from repro_torch.core.perfmodel import PLATFORMS, initial_task_mapping
     from repro_torch.graph import MmapFeatures, NumpySampler
     n, f = ds.features.shape
     need = n * f * ds.features.dtype.itemsize
     os.makedirs(spill_dir, exist_ok=False)
-    try:
-        fs = mount_of(spill_dir)
-        on_tmpfs = fs["fstype"] == "tmpfs"
-        emit("outofcore_fs", spill_dir=spill_dir, matrix_bytes=need, **fs)
-        check(fs["free_bytes"] >= 2 * need,
-              f"outofcore: {fs['free_bytes']} B free under {spill_dir} "
-              f"({fs['fstype']}), {2 * need} B needed")
-        res: dict = dict(fs=fs, numpy=np.__version__, note=(
-            "the spill is on tmpfs: its 'disk' is RAM, so the cold and stall "
-            "readings are page-mapping and copy time, not disk reads"
-            if on_tmpfs else f"the spill is on {fs['fstype']}"))
-        # 1. the spill: one 65,536-row partition buffered at a time
+    fs = mount_of(spill_dir)
+    on_tmpfs = fs["fstype"] == "tmpfs"
+    emit("outofcore_fs", spill_dir=spill_dir, matrix_bytes=need, **fs)
+    check(fs["free_bytes"] >= 2 * need,
+          f"outofcore: {fs['free_bytes']} B free under {spill_dir} "
+          f"({fs['fstype']}), {2 * need} B needed")
+    res: dict = dict(fs=fs, numpy=np.__version__, note=(
+        "the spill is on tmpfs: its 'disk' is RAM, so the cold and stall "
+        "readings are page-mapping and copy time, not disk reads"
+        if on_tmpfs else f"the spill is on {fs['fstype']}"))
+    # 1. the spill: one 65,536-row partition buffered at a time
+    t0 = time.perf_counter()
+    sp = MmapFeatures.spill(ds.features, spill_dir,
+                            partition_rows=SPILL_ROWS)
+    res["spill_s"] = time.perf_counter() - t0
+    sizes = [os.path.getsize(b) for b in
+             glob.glob(os.path.join(spill_dir, "part-*.bin"))]
+    res.update(spill_peak_buffered_rows=sp.spill_peak_buffered_rows,
+               blobs=len(sizes), blob_max_bytes=max(sizes),
+               bytes_on_disk=sum(sizes),
+               spill_gb_per_s=sum(sizes) / res["spill_s"] / 1e9)
+    sp.close()
+    check(res["spill_peak_buffered_rows"] <= SPILL_ROWS,
+          f"outofcore: spill buffered {res['spill_peak_buffered_rows']}")
+    check(res["bytes_on_disk"] == need
+          and res["blobs"] == -(-n // SPILL_ROWS)
+          and res["blob_max_bytes"] <= SPILL_ROWS * f * 4,
+          f"outofcore: spill layout {res['blobs']} blobs, "
+          f"{res['bytes_on_disk']} B")
+    # 2. gathers: the unique frontiers of 8 host-sampled batches,
+    # bit-equal to the dense rows; then one cold gather (a fresh view
+    # after drop_page_cache) and the same gather warm
+    mm = MmapFeatures(spill_dir)
+    sampler = NumpySampler(ds.graph, sage.fanouts, seed=7)
+    rng = np.random.default_rng(8)
+    fronts = []
+    for _ in range(8):
+        tgt = rng.integers(0, n, slice_cfg.total_batch)
+        mb = sampler.sample(tgt, ds.labels[tgt])
+        fronts.append(np.unique(mb.frontier(len(sage.fanouts))))
+        check(np.array_equal(mm.take(fronts[-1]),
+                             ds.features[fronts[-1]]),
+              "outofcore: mmap rows differ from the dense rows")
+    res["madvise_calls"] = mm.madvise_calls
+    check(mm.madvise_calls > 0, "outofcore: no madvise hint landed "
+          f"(numpy {np.__version__}: an np.memmap without _mmap?)")
+    mm.close()
+    cold = MmapFeatures(spill_dir)
+    cold.drop_page_cache()
+    gather = dict(fadvise_failures=cold.fadvise_failures)
+    for kind in ("cold", "warm"):
+        before = cold.cold_fault_page_bytes
         t0 = time.perf_counter()
-        sp = MmapFeatures.spill(ds.features, spill_dir,
-                                partition_rows=SPILL_ROWS)
-        res["spill_s"] = time.perf_counter() - t0
-        sizes = [os.path.getsize(b) for b in
-                 glob.glob(os.path.join(spill_dir, "part-*.bin"))]
-        res.update(spill_peak_buffered_rows=sp.spill_peak_buffered_rows,
-                   blobs=len(sizes), blob_max_bytes=max(sizes),
-                   bytes_on_disk=sum(sizes),
-                   spill_gb_per_s=sum(sizes) / res["spill_s"] / 1e9)
-        sp.close()
-        check(res["spill_peak_buffered_rows"] <= SPILL_ROWS,
-              f"outofcore: spill buffered {res['spill_peak_buffered_rows']}")
-        check(res["bytes_on_disk"] == need
-              and res["blobs"] == -(-n // SPILL_ROWS)
-              and res["blob_max_bytes"] <= SPILL_ROWS * f * 4,
-              f"outofcore: spill layout {res['blobs']} blobs, "
-              f"{res['bytes_on_disk']} B")
-        # 2. gathers: the unique frontiers of 8 host-sampled batches,
-        # bit-equal to the dense rows; then one cold gather (a fresh view
-        # after drop_page_cache) and the same gather warm
-        mm = MmapFeatures(spill_dir)
-        sampler = NumpySampler(ds.graph, sage.fanouts, seed=7)
-        rng = np.random.default_rng(8)
-        fronts = []
-        for _ in range(8):
-            tgt = rng.integers(0, n, slice_cfg.total_batch)
-            mb = sampler.sample(tgt, ds.labels[tgt])
-            fronts.append(np.unique(mb.frontier(len(sage.fanouts))))
-            check(np.array_equal(mm.take(fronts[-1]),
-                                 ds.features[fronts[-1]]),
-                  "outofcore: mmap rows differ from the dense rows")
-        res["madvise_calls"] = mm.madvise_calls
-        check(mm.madvise_calls > 0, "outofcore: no madvise hint landed "
-              f"(numpy {np.__version__}: an np.memmap without _mmap?)")
-        mm.close()
-        cold = MmapFeatures(spill_dir)
-        cold.drop_page_cache()
-        gather = dict(fadvise_failures=cold.fadvise_failures)
-        for kind in ("cold", "warm"):
-            before = cold.cold_fault_page_bytes
-            t0 = time.perf_counter()
-            rows = cold.take(fronts[0])
-            dt = time.perf_counter() - t0
-            gather[kind] = dict(
-                rows=int(fronts[0].size), ms=dt * 1e3,
-                gb_per_s=rows.nbytes / dt / 1e9,
-                cold_fault_page_bytes=cold.cold_fault_page_bytes - before)
-        cold.close()
-        # the same rows from the dense matrix in RAM: the gather without the
-        # tier's windows and bookkeeping
-        t0 = time.perf_counter()
-        rows = np.take(ds.features, fronts[0], axis=0)
+        rows = cold.take(fronts[0])
         dt = time.perf_counter() - t0
-        gather["dense_ram"] = dict(rows=int(fronts[0].size), ms=dt * 1e3,
-                                   gb_per_s=rows.nbytes / dt / 1e9)
-        res["gather"] = gather
-        # 3. dense against disk, bit for bit (accelerator only, host
-        # sampler): the reference's acceptance check at full width
-        base = dataclasses.replace(slice_cfg, use_accel_sampler=False)
-        acc = dataclasses.replace(base, hybrid=False, use_drm=False,
-                                  tfp_depth=2)
-        runs = {"dense": run_trainer(ds, sage, acc, 4)}
-        weights = runs["dense"]["weights"]
-        runs["disk"] = run_trainer(disk_dataset(ds, spill_dir), sage, acc, 4,
-                                   weights)
-        check(runs["disk"]["losses"] == runs["dense"]["losses"],
-              "outofcore: disk losses differ from dense")
-        check((runs["dense"]["feature_tier"], runs["disk"]["feature_tier"])
-              == ("ram", "disk"), "outofcore: feature tiers")
+        gather[kind] = dict(
+            rows=int(fronts[0].size), ms=dt * 1e3,
+            gb_per_s=rows.nbytes / dt / 1e9,
+            cold_fault_page_bytes=cold.cold_fault_page_bytes - before)
+    cold.close()
+    # the same rows from the dense matrix in RAM: the gather without the
+    # tier's windows and bookkeeping
+    t0 = time.perf_counter()
+    rows = np.take(ds.features, fronts[0], axis=0)
+    dt = time.perf_counter() - t0
+    gather["dense_ram"] = dict(rows=int(fronts[0].size), ms=dt * 1e3,
+                               gb_per_s=rows.nbytes / dt / 1e9)
+    res["gather"] = gather
+    # 3. dense against disk, bit for bit (accelerator only, host
+    # sampler): the reference's acceptance check at full width
+    base = dataclasses.replace(slice_cfg, use_accel_sampler=False)
+    acc = dataclasses.replace(base, hybrid=False, use_drm=False,
+                              tfp_depth=2)
+    runs = {"dense": run_trainer(ds, sage, acc, 4)}
+    weights = runs["dense"]["weights"]
+    runs["disk"] = run_trainer(disk_dataset(ds, spill_dir), sage, acc, 4,
+                               weights)
+    check(runs["disk"]["losses"] == runs["dense"]["losses"],
+          "outofcore: disk losses differ from dense")
+    check((runs["dense"]["feature_tier"], runs["disk"]["feature_tier"])
+          == ("ram", "disk"), "outofcore: feature tiers")
 
-        # 4. prefetch off / on / bounded from cold pages, hybrid, no DRM
-        def model_shares(tr, overlap):
-            m = initial_task_mapping(
-                PLATFORMS[tr.cfg.host_platform],
-                PLATFORMS[tr.cfg.accel_platform], tr.cfg.n_accel,
-                tr.cfg.total_batch, sage.fanouts, sage.layer_dims,
-                model=sage.model, cache_hit_rate=tr.cache.expected_hit_rate,
-                dedup_factor=tr.measured_dedup_alpha, feature_tier="disk",
-                prefetch_overlap=overlap)
-            return (m["cpu"], m["accel_each"])
-        model = {}
+    # 4. prefetch off / on / bounded from cold pages, hybrid, no DRM
+    def model_shares(tr, overlap):
+        m = initial_task_mapping(
+            PLATFORMS[tr.cfg.host_platform],
+            PLATFORMS[tr.cfg.accel_platform], tr.cfg.n_accel,
+            tr.cfg.total_batch, sage.fanouts, sage.layer_dims,
+            model=sage.model, cache_hit_rate=tr.cache.expected_hit_rate,
+            dedup_factor=tr.measured_dedup_alpha, feature_tier="disk",
+            prefetch_overlap=overlap)
+        return (m["cpu"], m["accel_each"])
+    model = {}
 
-        def pin(tr):
-            # the perf model prices prefetch off at overlap 0 and on at 1,
-            # two mappings; all three runs train from the overlap-1 shares
-            # so that they train the same rows
-            model[tr.cfg.prefetch_windows] = (
-                model_shares(tr, tr.prefetch_overlap), model_shares(tr, 1.0))
-            return model_shares(tr, 1.0)
-        hyb = dataclasses.replace(base, hybrid=True, use_drm=False,
-                                  cache_drift_threshold=1.0)
-        for name, knobs in (
-                ("off", {}),
-                ("prefetch", dict(prefetch_windows=4,
-                                  prefetch_dedup_history=2)),
-                ("bounded", dict(prefetch_windows=4,
-                                 prefetch_dedup_history=2,
-                                 mmap_lru_windows=LRU_WINDOWS))):
-            data = disk_dataset(ds, spill_dir)
-            data.features.drop_page_cache()
-            r = run_trainer(data, sage, dataclasses.replace(hyb, **knobs),
-                            10, weights, pin)
-            data.features.close()
-            own, _ = model[knobs.get("prefetch_windows", 0)]
-            check(r["model_shares"] == own,
-                  f"outofcore ({name}): initial shares {r['model_shares']} "
-                  f"against the perf model's {own} for the disk tier")
-            check(r["health"]["status"] == "ok",
-                  f"outofcore ({name}): health {r['health']}")
-            runs[name] = r
-        check(runs["off"]["losses"] == runs["prefetch"]["losses"]
-              == runs["bounded"]["losses"],
-              "outofcore: losses differ with prefetch off / on / bounded")
-        check(runs["bounded"]["storage_io"]["evicted_window_bytes"] > 0,
-              "outofcore: the window bound evicted nothing")
-        # 5. the default configuration (device sampler, DRM) over disk
+    def pin(tr):
+        # the perf model prices prefetch off at overlap 0 and on at 1,
+        # two mappings; all three runs train from the overlap-1 shares
+        # so that they train the same rows
+        model[tr.cfg.prefetch_windows] = (
+            model_shares(tr, tr.prefetch_overlap), model_shares(tr, 1.0))
+        return model_shares(tr, 1.0)
+    hyb = dataclasses.replace(base, hybrid=True, use_drm=False,
+                              cache_drift_threshold=1.0)
+    for name, knobs in (
+            ("off", {}),
+            ("prefetch", dict(prefetch_windows=4,
+                              prefetch_dedup_history=2)),
+            ("bounded", dict(prefetch_windows=4,
+                             prefetch_dedup_history=2,
+                             mmap_lru_windows=LRU_WINDOWS))):
         data = disk_dataset(ds, spill_dir)
-        r = run_trainer(data, sage, dataclasses.replace(
-            slice_cfg, prefetch_windows=4), 6, weights)
+        data.features.drop_page_cache()
+        r = run_trainer(data, sage, dataclasses.replace(hyb, **knobs),
+                        10, weights, pin)
         data.features.close()
-        check(any(h["device_sampled"] for h in r["history"]),
-              "outofcore (default): no batch was sampled on the card")
-        check(r["storage_io"]["prefetch_submitted"] > 0,
-              "outofcore (default): nothing submitted to the prefetcher")
-        runs["default"] = r
-        res["runs"] = {k: {f: v for f, v in r.items() if f != "weights"}
-                       for k, r in runs.items()}
-        emit("outofcore", **res)
-        return res
+        own, _ = model[knobs.get("prefetch_windows", 0)]
+        check(r["model_shares"] == own,
+              f"outofcore ({name}): initial shares {r['model_shares']} "
+              f"against the perf model's {own} for the disk tier")
+        check(r["health"]["status"] == "ok",
+              f"outofcore ({name}): health {r['health']}")
+        runs[name] = r
+    check(runs["off"]["losses"] == runs["prefetch"]["losses"]
+          == runs["bounded"]["losses"],
+          "outofcore: losses differ with prefetch off / on / bounded")
+    check(runs["bounded"]["storage_io"]["evicted_window_bytes"] > 0,
+          "outofcore: the window bound evicted nothing")
+    # 5. the default configuration (device sampler, DRM) over disk
+    data = disk_dataset(ds, spill_dir)
+    r = run_trainer(data, sage, dataclasses.replace(
+        slice_cfg, prefetch_windows=4), 6, weights)
+    data.features.close()
+    check(any(h["device_sampled"] for h in r["history"]),
+          "outofcore (default): no batch was sampled on the card")
+    check(r["storage_io"]["prefetch_submitted"] > 0,
+          "outofcore (default): nothing submitted to the prefetcher")
+    runs["default"] = r
+    res["runs"] = {k: {f: v for f, v in r.items() if f != "weights"}
+                   for k, r in runs.items()}
+    emit("outofcore", **res)
+    return res
+
+
+# the reference's transient storage schedule (tests/test_faults.py)
+TRANSIENT_SCHEDULE = {"seed": 0, "schedule": [
+    {"op": "storage.take", "kind": "transient", "start": 0, "count": 1},
+    {"op": "storage.take", "kind": "transient", "start": 7, "count": 2},
+    {"op": "storage.prefetch", "kind": "transient", "start": 1,
+     "count": 1}]}
+WATCHDOG_DELAY = 4.0         # the wedge of faults (e): past the 1 s watchdog
+
+
+def fault_run(ds, gnn, cfg, iters: int, weights=None, injector=None,
+              failure=None) -> dict:
+    """One trainer run of the faults phase: ``weights`` (the trainer's own
+    when None), an optional ``FaultInjector`` and ``inject_failure``
+    arguments; the launch counts are reset before training and read at the
+    end of every iteration (the checkpoint callback, ``ckpt_every=1``).
+    The caller closes ``tr``."""
+    from repro_torch.core import HybridGNNTrainer
+    from repro_torch.kernels import ops
+    tr = HybridGNNTrainer(ds, gnn, dataclasses.replace(cfg, ckpt_every=1),
+                          fault_injector=injector)
+    if weights is None:
+        weights = {k: v.cpu().numpy() for k, v in tr.params.items()}
+    tr.set_params(weights)
+    if failure is not None:
+        tr.inject_failure(*failure)
+    per_iter: list = []
+    tr.set_checkpoint_callback(
+        lambda it, p, o: per_iter.append(ops.kernel_launches()))
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    hist = tr.train(iters)
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    accel = sum(1 for m in hist for n in m.shares if n != "cpu")
+    return dict(tr=tr, weights=weights, hist=hist, wall_s=wall,
+                losses=[m.loss for m in hist], launches=launches,
+                per_iter=[dict(c) for c in per_iter], accel_batches=accel)
+
+
+def check_k1_k2(run: dict, what: str) -> None:
+    """K1 once and K2 twice for every accelerator batch of the run."""
+    k, n = run["launches"], run["accel_batches"]
+    check(n > 0 and k["cache_combine"] == n and k["fused_update"] == 2 * n,
+          f"{what}: launches {k} for {n} accelerator batches")
+
+
+def join_pipeline_threads(timeout: float) -> int:
+    """Wait for the stage and feeder threads a stalled pipeline left behind
+    (a wedged stage cannot be interrupted; it finishes its item, then
+    drains).  Returns how many were still running."""
+    import threading
+    left = [t for t in threading.enumerate()
+            if t.name.endswith(("(_worker)", "(feed)"))]
+    for t in left:
+        t.join(timeout)
+    return len(left)
+
+
+def phase_faults(ds, sage, slice_cfg, spill_dir: str) -> dict:
+    """The failure model at the slice's full width: (a) the reference's
+    transient storage schedule against a clean twin, (b) the prefetch
+    worker killed past its restart budget, (c) a refresh that always fails
+    against refresh off, (d) a trainer killed mid-run over the dense
+    features, (e) a wedged load stage against the watchdog, last."""
+    from repro_torch.core import HybridGNNTrainer, PipelineStallError
+    from repro_torch.graph import FaultInjector, FaultSpec
+    base = dataclasses.replace(slice_cfg, use_accel_sampler=False,
+                               use_drm=False, n_accel=2, hybrid=False,
+                               tfp_depth=2)
+    res: dict = {}
+
+    def disk(cfg, iters, weights, injector=None, failure=None):
+        data = disk_dataset(ds, spill_dir)
+        r = fault_run(data, sage, cfg, iters, weights, injector, failure)
+        r["tr"].close()
+        data.features.close()
+        return r
+
+    # (a) transient storage faults: retried, invisible to the losses
+    a_cfg = dataclasses.replace(base, prefetch_windows=4)
+    clean = disk(a_cfg, 6, None)
+    weights = clean["weights"]
+    inj = FaultInjector.from_json(TRANSIENT_SCHEDULE)
+    faulty = disk(a_cfg, 6, weights, inj)
+    io = faulty["tr"].storage_io()
+    check(faulty["losses"] == clean["losses"],
+          "faults (a): losses differ from the clean twin")
+    check(io["io_retries"] >= 3 and io["io_errors"] >= 3
+          and inj.report()["faults_raised"] >= 3,
+          f"faults (a): retries {io['io_retries']}, errors "
+          f"{io['io_errors']}, injector {inj.report()}")
+    for r in (clean, faulty):
+        check_k1_k2(r, "faults (a)")
+    res["transient"] = dict(
+        losses=faulty["losses"], injector=inj.report(),
+        io_retries=io["io_retries"], io_errors=io["io_errors"],
+        io_retry_seconds=io["io_retry_seconds"],
+        wall_s=faulty["wall_s"], clean_wall_s=clean["wall_s"],
+        launches=faulty["launches"])
+
+    # (b) the prefetch worker dies from its third item on, past a budget
+    # of one restart: synchronous loads, the overlap re-priced to 0
+    inj = FaultInjector([FaultSpec(op="prefetch.worker", kind="kill",
+                                   start=2, count=1 << 30)])
+    data = disk_dataset(ds, spill_dir)
+    r = fault_run(data, sage, dataclasses.replace(
+        a_cfg, prefetch_restart_budget=1), 8, weights, inj)
+    tr = r["tr"]
+    h = tr.health()
+    overlap = tr._measured_prefetch_overlap()
+    tr.close()
+    data.features.close()
+    ev = [e for e in h["events"] if e["component"] == "prefetcher"]
+    check(len(r["losses"]) == 8
+          and all(math.isfinite(x) for x in r["losses"]),
+          f"faults (b): losses {r['losses']}")
+    check(h["status"] == "degraded" and len(ev) == 1
+          and "synchronously" in ev[0]["action"]
+          and h["components"]["prefetcher"]["restarts"] == 1,
+          f"faults (b): health {h}")
+    check(overlap == 0.0, f"faults (b): measured overlap {overlap}")
+    check_k1_k2(r, "faults (b)")
+    res["prefetcher_death"] = dict(health=h, overlap=overlap,
+                                   injector=inj.report(),
+                                   wall_s=r["wall_s"],
+                                   launches=r["launches"])
+
+    # (c) every refresh stage fails: disabled after two, nothing committed,
+    # the losses those of refresh off
+    c_cfg = dataclasses.replace(base, n_accel=1)
+    inj = FaultInjector([FaultSpec(op="refresh.stage", kind="permanent")])
+    data = disk_dataset(ds, spill_dir)
+    on = fault_run(data, sage, dataclasses.replace(
+        c_cfg, cache_refresh=True, cache_drift_threshold=0.0,
+        refresh_failure_budget=2), 6, weights, inj)
+    tr = on["tr"]
+    h, version = tr.health(), tr.cache.version
+    stage_failures = tr.cache.stage_failures
+    tr.close()
+    data.features.close()
+    off = disk(c_cfg, 6, weights)
+    check(on["losses"] == off["losses"],
+          "faults (c): losses differ from refresh off")
+    check(not h["components"]["refresh"]["enabled"] and version == 0
+          and stage_failures == 2 and on["launches"]["cache_update"] == 0,
+          f"faults (c): health {h}, version {version}, stage failures "
+          f"{stage_failures}, launches {on['launches']}")
+    for r in (on, off):
+        check_k1_k2(r, "faults (c)")
+    res["refresh_failure"] = dict(health=h, cache_version=version,
+                                  stage_failures=stage_failures,
+                                  injector=inj.report(),
+                                  launches=on["launches"])
+
+    # (d) accel0 dies at iteration 3 (dense features, both accelerators on
+    # cuda:0, sequential stages so each iteration's launches are its own)
+    d_cfg = dataclasses.replace(base, hybrid=True, tfp_depth=0)
+    r = fault_run(ds, sage, d_cfg, 8, weights, failure=("accel0", 3))
+    tr = r["tr"]
+    h = tr.health()
+    a = tr.runtime.assignment
+    tr.close()
+    hist = r["hist"]
+    cpu_b, accel_b = hist[-1].assignment
+    k1 = [c["cache_combine"] for c in r["per_iter"]]
+    k2 = [c["fused_update"] for c in r["per_iter"]]
+    k1 = [y - x for x, y in zip([0] + k1, k1)]
+    k2 = [y - x for x, y in zip([0] + k2, k2)]
+    check(h["components"].get("trainers") == {"failed": ["accel0"]},
+          f"faults (d): health {h}")
+    check(accel_b > 0 and cpu_b + accel_b * a.n_accel == 1024
+          and a.n_accel == 1,
+          f"faults (d): last assignment {hist[-1].assignment}, n_accel "
+          f"{a.n_accel}")
+    check(all(math.isfinite(x) for x in r["losses"]),
+          f"faults (d): losses {r['losses']}")
+    check(hist[0].shares.get("accel0", 0) > 0
+          and k1 == [2, 2, 2, 2, 1, 1, 1, 1]
+          and k2 == [4, 4, 4, 2, 2, 2, 2, 2],
+          f"faults (d): K1 per iteration {k1}, K2 {k2}, shares "
+          f"{[m.shares for m in hist]}")
+    res["trainer_failure"] = dict(
+        losses=r["losses"], shares=[m.shares for m in hist],
+        assignments=[m.assignment for m in hist], k1_per_iter=k1,
+        k2_per_iter=k2, t_tc_ms=[m.times.t_tc * 1e3 for m in hist],
+        t_ta_ms=[m.times.t_ta * 1e3 for m in hist], health=h,
+        wall_s=r["wall_s"])
+
+    # (e) the load stage wedged at its third call: a diagnosis within the
+    # 1 s watchdog, not a hang; the stranded thread is waited out before
+    # the next phase times anything
+    inj = FaultInjector([FaultSpec(op="pipeline.load", kind="delay",
+                                   start=2, count=1,
+                                   delay=WATCHDOG_DELAY)])
+    data = disk_dataset(ds, spill_dir)
+    tr = HybridGNNTrainer(data, sage, dataclasses.replace(
+        c_cfg, pipeline_watchdog_seconds=1.0), fault_injector=inj)
+    tr.set_params(weights)
+    err = None
+    t0 = time.perf_counter()
+    try:
+        tr.train(8)
+    except PipelineStallError as e:
+        err = e
+    diagnosis_s = time.perf_counter() - t0
+    stranded = join_pipeline_threads(WATCHDOG_DELAY + 30.0)
+    tr.close()
+    data.features.close()
+    check(err is not None and err.stage == "load"
+          and err.watchdog_seconds == 1.0 and diagnosis_s < 10.0,
+          f"faults (e): {err!r} after {diagnosis_s:.2f} s")
+    res["watchdog"] = dict(stage=err.stage, diagnosis_s=diagnosis_s,
+                           stalled_s=err.stalled_seconds,
+                           queue_depths=err.queue_depths,
+                           completed=err.completed,
+                           iterations_done=len(tr.history),
+                           stranded_threads_joined=stranded)
+    emit("faults", **res)
+    return res
+
+
+AUTOTUNE_ITERS = 36
+HAND_KNOBS = dict(prefetch_windows=4, mmap_lru_windows=8,
+                  initial_threads=(2, 2, 2))
+BAD_KNOBS = dict(prefetch_windows=0, mmap_lru_windows=1,
+                 initial_threads=(4, 1, 1))
+
+
+def steady_s(times: list) -> float:
+    """The reference bench's steady iteration time: the mean of the last
+    third, its worst iteration dropped."""
+    tail = sorted(times[-max(len(times) // 3, 3):])
+    return float(np.mean(tail[:-1] or tail))
+
+
+def phase_autotune(ds, sage, slice_cfg, spill_dir: str) -> dict:
+    """``benchmarks/bench_autotune.py``'s three knob sets on the slice over
+    the spill (one accelerator, accelerator only, host sampler, no DRM):
+    hand-tuned, misconfigured, and misconfigured with the autotuner (and
+    the dynamic cache refresh) on.  Checks: bad-auto's losses bit-equal
+    to bad-static's, every knob state inside its bounds, K1/K2 on every
+    iteration.  Reads the tuner's moves and the host time of a deciding
+    boundary."""
+    from repro_torch.core import HybridGNNTrainer
+    from repro_torch.kernels import ops
+    base = dataclasses.replace(slice_cfg, use_accel_sampler=False,
+                               use_drm=False, n_accel=1, hybrid=False,
+                               tfp_depth=2)
+    runs: dict = {}
+    weights = None
+    for label, knobs, auto in (("hand", HAND_KNOBS, False),
+                               ("bad_static", BAD_KNOBS, False),
+                               ("bad_auto", BAD_KNOBS, True)):
+        extra = (dict(auto_tune=True, autotune_interval=3,
+                      cache_refresh=True) if auto else {})
+        data = disk_dataset(ds, spill_dir)
+        tr = HybridGNNTrainer(data, sage,
+                              dataclasses.replace(base, **knobs, **extra))
+        if weights is None:
+            weights = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        tr.set_params(weights)
+        boundaries: list = []
+        trail: list = []
+        if auto:
+            step = tr._maybe_autotune
+
+            def timed(times, tr=tr, step=step):
+                seen = tr.autotuner._windows_seen
+                t0 = time.perf_counter()
+                step(times)
+                dt = time.perf_counter() - t0
+                trail.append(tr._knobs)
+                if tr.autotuner._windows_seen != seen:
+                    boundaries.append(dict(iteration=len(tr.history),
+                                           ms=dt * 1e3,
+                                           log=list(tr.autotuner.log)))
+            tr._maybe_autotune = timed
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        hist = tr.train(AUTOTUNE_ITERS)
+        wall = time.perf_counter() - t0
+        launches = ops.kernel_launches()
+        rep = tr.autotune_report()
+        io = tr.storage_io()
+        bounds = tr.autotuner.bounds if auto else None
+        tr.close()
+        data.features.close()
+        times = [m.iter_time for m in hist]
+        check(launches["cache_combine"] == AUTOTUNE_ITERS
+              and launches["fused_update"] == 2 * AUTOTUNE_ITERS,
+              f"autotune ({label}): launches {launches}")
+        check(all(math.isfinite(m.loss) for m in hist),
+              f"autotune ({label}): non-finite loss")
+        r = dict(steady_ms=steady_s(times) * 1e3, wall_s=wall,
+                 iter_ms=[t * 1e3 for t in times],
+                 t_load_ms=[m.times.t_load * 1e3 for m in hist],
+                 t_load_stall_ms=[m.times.t_load_stall * 1e3 for m in hist],
+                 losses=[m.loss for m in hist], launches=launches,
+                 load_stall_s=io["load_stall_seconds"],
+                 window_evictions=io["window_evictions"],
+                 cache_version=hist[-1].cache_version, autotune=rep)
+        if auto:
+            check(all(bounds.contains(k) for k in trail),
+                  f"autotune: a knob state left its bounds: {trail}")
+            deciding = [b["ms"] for b in boundaries]
+            r.update(boundaries=boundaries,
+                     decide_ms_median=statistics.median(deciding),
+                     decide_ms_max=max(deciding),
+                     knob_trail=[dataclasses.asdict(k) for k in trail])
+        runs[label] = r
+    check(runs["bad_auto"]["losses"] == runs["bad_static"]["losses"],
+          "autotune: bad-auto losses differ from bad-static")
+    hand = runs["hand"]["steady_ms"]
+    res = dict(iters=AUTOTUNE_ITERS, runs=runs,
+               ratio_auto_vs_hand=runs["bad_auto"]["steady_ms"] / hand,
+               ratio_static_vs_hand=runs["bad_static"]["steady_ms"] / hand)
+    emit("autotune", **res)
+    return res
+
+
+def phase_cli(build_dir: Path) -> dict:
+    """``python -m repro_torch.launch.train_gnn`` through its ``main`` on
+    the card at a small scale, with the autotuner, a trainer failure and a
+    two-spec fault schedule over the mmap tier."""
+    import contextlib
+    import io as _io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_gnn
+    work = build_dir / f"cli-{os.getpid()}"
+    work.mkdir(parents=True)
+    try:
+        sched = work / "faults.json"
+        sched.write_text(json.dumps({"seed": 0, "schedule": [
+            {"op": "storage.take", "kind": "transient", "start": 0,
+             "count": 1},
+            {"op": "storage.prefetch", "kind": "transient", "start": 1,
+             "count": 1}]}))
+        argv = ["--dataset", "ogbn-products", "--scale", "0.01",
+                "--iters", "12", "--batch", "1024", "--fanouts", "25,10",
+                "--n-accel", "2", "--agg-impl", "pallas_fused",
+                "--feature-backend", "mmap", "--spill-dir",
+                str(work / "spill"), "--prefetch-windows", "2",
+                "--cache-fraction", "0.2", "--cache-refresh", "--auto-tune",
+                "--inject-failure", "3", "--fault-schedule", str(sched),
+                "--pipeline-watchdog", "60"]
+        buf = _io.StringIO()
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = train_gnn.main(argv)
+        wall = time.perf_counter() - t0
+        launches = ops.kernel_launches()
     finally:
-        shutil.rmtree(spill_dir, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    out = buf.getvalue().splitlines()
+    health = [ln for ln in out if ln.startswith("health: ")]
+    check(len(res["losses"]) == 12
+          and all(math.isfinite(x) for x in res["losses"]),
+          f"cli: losses {res['losses']}")
+    check("accel0" in res["failed"]
+          and any(ln.startswith("survived failures: ") and "accel0" in ln
+                  for ln in out), f"cli: failures {res['failed']}")
+    check(len(health) == 1, f"cli: health lines {health}")
+    check(launches["cache_combine"] > 0 and launches["fused_update"] > 0,
+          f"cli: launches {launches}")
+    emit("cli", argv=argv, wall_s=wall, losses=res["losses"],
+         assignments=res["assignments"], failed=res["failed"],
+         health=health[0], faults=res["faults"],
+         autotune={k: res["autotune"].get(k) for k in
+                   ("trials", "accepted", "rollbacks", "knobs")},
+         launches=launches)
+    return res
 
 
 def bf16_close(a: torch.Tensor, b: torch.Tensor, what: str) -> dict:
@@ -1830,8 +2244,15 @@ def main() -> int:
                                      torch.device("cuda", 0))
     shard_launches = phase_shard(ds, sage, host_cfg)
     phase_depth(ds, sage, host_cfg)
-    phase_outofcore(ds, sage, slice_cfg, args.spill_dir or str(
-        ROOT / "build" / f"outofcore-spill-{os.getpid()}"))
+    spill_dir = args.spill_dir or str(
+        ROOT / "build" / f"outofcore-spill-{os.getpid()}")
+    try:
+        phase_outofcore(ds, sage, slice_cfg, spill_dir)
+        phase_faults(ds, sage, slice_cfg, spill_dir)
+        phase_autotune(ds, sage, slice_cfg, spill_dir)
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    phase_cli(ROOT / "build")
     serve_res = phase_serve(torch.device("cuda", 0))
 
     launches = dict(train["launches"])

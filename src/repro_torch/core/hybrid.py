@@ -81,9 +81,22 @@ loads go on synchronously (``degrade_on_failure=False`` raises instead).
 All of it is invisible to the losses.  ``storage_io()`` reports the tier's
 counters.
 
-Knobs of the reference that this slice does not port raise
-``NotImplementedError`` naming the ROADMAP item that will port them; none
-is silently ignored.
+Failure model: ``fault_injector`` (a ``graph.faults.FaultInjector``)
+reaches the source, the cache (``refresh.stage``), the prefetcher and the
+pipeline (``pipeline.<stage>``); a refresh that keeps failing is disabled
+after ``refresh_failure_budget`` tries, and ``pipeline_watchdog_seconds``
+turns a wedged stage into a ``PipelineStallError``.  ``inject_failure``
+kills a trainer at an iteration: it submits zero gradients at weight 0,
+drops out of later payloads, and its share folds into the CPU trainer's.
+``health()`` reports every degraded component and failed trainer.
+
+With ``auto_tune`` a ``KnobAutoTuner`` closes the DRM loop over the
+performance-only knobs (prefetch depth, window LRU, stage threads, refresh
+cadence and fraction): each window of ``autotune_interval`` iterations
+calibrates a ``CalibratedKnobModel``, applies the best predicted move and
+keeps or rolls it back on the next measured window.  No knob touches
+shares, RNG streams or batch composition, so losses are bit-identical with
+the tuner on or off; ``autotune_report()`` gives the trajectory.
 """
 from __future__ import annotations
 
@@ -111,8 +124,9 @@ from ..kernels.ops import assemble_features, assemble_features_sharded
 from ..optim.compression import (CompressionSpec, compress_grads,
                                  decompress_grads)
 from ..optim.optimizers import adamw, apply_updates
-from .drm import Assignment, StageTimes
-from .perfmodel import PLATFORMS, initial_task_mapping
+from .drm import Assignment, KnobAutoTuner, StageTimes
+from .perfmodel import (PLATFORMS, CalibratedKnobModel, KnobBounds,
+                        KnobState, SignalSnapshot, initial_task_mapping)
 from .pipeline import PipelineItem, PrefetchPipeline, Stage
 from .protocol import Runtime, Synchronizer, TrainerHandle
 
@@ -125,7 +139,7 @@ Params = Dict[str, torch.Tensor]
 class HybridConfig:
     """The reference's configuration, field for field (``cache_assemble``
     aside: here the tensor's device picks the kernel or its plain
-    version).  Knobs outside this slice raise in ``__post_init__``."""
+    version)."""
     total_batch: int = 1024
     n_accel: int = 1
     hybrid: bool = True               # CPU trainer participates
@@ -176,15 +190,6 @@ class HybridConfig:
                                       #   read it
 
     def __post_init__(self):
-        for on, knob, item in (
-                (self.auto_tune, "auto_tune=True", "knob autotuner"),
-                (self.pipeline_watchdog_seconds > 0,
-                 "pipeline_watchdog_seconds>0", "fault injection and "
-                 "degraded modes")):
-            if on:
-                raise NotImplementedError(
-                    f"HybridConfig({knob}) is not ported yet "
-                    f"(ROADMAP, port queue: {item})")
         if self.compression not in CompressionSpec.METHODS:
             raise ValueError(f"compression {self.compression!r}")
         if self.feature_dtype not in ("float32", "bfloat16"):
@@ -229,12 +234,14 @@ class IterationMetrics:
         return self.edges / t / 1e6 if t > 0 else 0.0
 
 
-# Deliberately unguarded: _refresh_failures / _refresh_disabled /
-# _staged_feedback / _refresh_thread and the refresh bookkeeping (touched
-# only at iteration boundaries on the training thread; the refresh worker
-# writes nothing but _refresh_error, which is declared), and everything the
-# pipeline hands through PipelineItem payloads (queue happens-before).
-@guarded_by("_state_lock", "_degraded", "_refresh_error")
+# Deliberately unguarded: _fail_at (written before the run by
+# inject_failure, only read during it), _refresh_failures /
+# _refresh_disabled / _staged_feedback / _refresh_thread, the refresh and
+# autotune bookkeeping (touched only at iteration boundaries on the
+# training thread; the refresh worker writes nothing but _refresh_error,
+# which is declared), and everything the pipeline hands through
+# PipelineItem payloads (queue happens-before).
+@guarded_by("_state_lock", "_failed", "_degraded", "_refresh_error")
 class HybridGNNTrainer:
     """Hybrid CPU + accelerator trainer.  ``device=None`` runs the
     accelerator trainers on ``cuda:0`` (raising without CUDA); pass
@@ -242,13 +249,10 @@ class HybridGNNTrainer:
 
     def __init__(self, dataset: GraphDataset, gnn_cfg: GNNConfig,
                  cfg: HybridConfig, device=None, fault_injector=None):
-        if fault_injector is not None:
-            raise NotImplementedError(
-                "fault_injector is not ported yet (ROADMAP, port queue: "
-                "fault injection and degraded modes)")
         self.dataset = dataset
         self.gnn_cfg = gnn_cfg
         self.cfg = cfg
+        self.fault_injector = fault_injector
         self.device = resolve_device(device)
         self.cpu_device = torch.device("cpu")
         self.accel_devices = accel_devices(self.device, cfg.n_accel)
@@ -256,9 +260,12 @@ class HybridGNNTrainer:
         self._epoch_perm = self._rng.permutation(dataset.num_nodes)
         self._cursor = 0
         self._transfer_streams: Dict[torch.device, Any] = {}
-        # degraded-mode record (component -> event) and the async refresh
-        # worker's latched error, shared with health() and that worker
+        # failed trainers (added by trainer threads), the degraded-mode
+        # record (component -> event) and the async refresh worker's
+        # latched error, shared with health() and those threads
         self._state_lock = threading.Lock()
+        self._failed: set = set()
+        self._fail_at: Dict[str, int] = {}
         self._degraded: Dict[str, Dict[str, Any]] = {}
         self._refresh_failures = 0        # consecutive stage() failures
         self._refresh_disabled = False    # budget spent: refresh is off
@@ -294,6 +301,8 @@ class HybridGNNTrainer:
         src = dataset.feature_source
         if cfg.mmap_lru_windows > 0 and hasattr(src, "lru_windows"):
             src.lru_windows = int(cfg.mmap_lru_windows)
+        if fault_injector is not None and hasattr(src, "fault_injector"):
+            src.fault_injector = fault_injector
         self.prefetcher: Optional[WindowPrefetcher] = \
             self._build_prefetcher(cfg.prefetch_windows)
 
@@ -332,6 +341,8 @@ class HybridGNNTrainer:
         self._refresh_error: Optional[BaseException] = None
         self._staged_feedback: Optional[Tuple[float, float]] = None
         if self.cache is not None:
+            if fault_injector is not None:
+                self.cache.fault_injector = fault_injector
             self.cache.kernel_pipeline_depth = cfg.kernel_pipeline_depth
             # the hotness counters cost two scattered adds per lookup and a
             # 4 B/node estimate: only when the refresh policy reads them
@@ -374,12 +385,51 @@ class HybridGNNTrainer:
                                share_quantum=cfg.share_quantum)
         # refresh cadence and the measured admission traffic the Eq. 7/8
         # re-price reads; the staleness rate is the knob autotuner's input
-        # (ROADMAP, port queue: knob autotuner)
         self._refresh_period = max(1, int(cfg.cache_refresh_period))
         self._iters_done = 0
         self._iters_since_refresh = 0
         self._refresh_bytes_per_iter = 0.0
         self._hit_decay_per_iter = 0.0
+
+        # --- model-predictive knob autotuning (closes the DRM loop) ----------
+        self._last_load_stats = self.loader.snapshot_stats()
+        self._last_windows_touched = int(
+            getattr(src, "gather_windows_touched", 0))
+        self.autotuner: Optional[KnobAutoTuner] = None
+        self._knobs = KnobState(
+            prefetch_windows=(cfg.prefetch_windows
+                              if self.prefetcher is not None else 0),
+            mmap_lru_windows=int(getattr(src, "lru_windows", 0)),
+            sample_threads=int(thr[0]), load_threads=int(thr[1]),
+            train_threads=int(thr[2]),
+            refresh_period=self._refresh_period,
+            refresh_frac=float(cfg.cache_refresh_frac))
+        if cfg.auto_tune:
+            # a range opens only where its subsystem exists; the others
+            # stay frozen at their current value
+            can_prefetch = hasattr(src, "prefetch_rows")
+            can_lru = hasattr(src, "lru_windows")
+            lru0 = self._knobs.mmap_lru_windows
+            refresh_on = cfg.cache_refresh and self.cache is not None
+            bounds = KnobBounds(
+                prefetch_windows=(0, 64) if can_prefetch else (0, 0),
+                # lru 0 is unbounded: the search may bound it, never
+                # below one window
+                mmap_lru_windows=(1, 4096) if can_lru else (lru0, lru0),
+                min_stage_threads=1,
+                total_threads=self._knobs.total_threads,
+                refresh_period=((1, 16) if refresh_on
+                                else (self._refresh_period,
+                                      self._refresh_period)),
+                refresh_frac=((0.05, 0.5) if refresh_on
+                              else (self._knobs.refresh_frac,
+                                    self._knobs.refresh_frac)))
+            self.autotuner = KnobAutoTuner(
+                self.runtime.drm, bounds,
+                interval=cfg.autotune_interval,
+                hysteresis=cfg.autotune_hysteresis,
+                min_gain=cfg.autotune_min_gain,
+                warmup_windows=cfg.autotune_warmup_windows)
         self.history: List[IterationMetrics] = []
 
     # ------------------------------------------------------------ utilities
@@ -395,7 +445,8 @@ class HybridGNNTrainer:
     def _build_prefetcher(self, windows: int
                           ) -> Optional[WindowPrefetcher]:
         """The background window prefetcher, or None when the knob is off or
-        the source cannot page-fault."""
+        the source cannot page-fault.  Shared by ``__init__`` and the
+        autotuner's ``prefetch_windows`` moves."""
         src = self.dataset.feature_source
         if windows <= 0 or not hasattr(src, "prefetch_rows"):
             return None
@@ -403,7 +454,8 @@ class HybridGNNTrainer:
             src, max_queue=int(windows),
             dedup_history=self.cfg.prefetch_dedup_history,
             restart_budget=self.cfg.prefetch_restart_budget,
-            raise_on_failure=not self.cfg.degrade_on_failure)
+            raise_on_failure=not self.cfg.degrade_on_failure,
+            fault_injector=self.fault_injector)
 
     def _probe_dup_factor(self) -> float:
         """alpha = unique-miss / positional-miss frontier rows of one probe
@@ -421,6 +473,11 @@ class HybridGNNTrainer:
         if look.miss_positions == 0:      # fully cached probe: no traffic
             return 1.0
         return look.num_miss / look.miss_positions
+
+    def inject_failure(self, trainer_name: str, at_iteration: int) -> None:
+        """Fault-tolerance hook: trainer ``trainer_name`` dies at iteration
+        ``at_iteration`` of the next ``train`` call."""
+        self._fail_at[trainer_name] = at_iteration
 
     def set_checkpoint_callback(self, cb) -> None:
         """``cb(iteration, params, opt_state)`` runs after every
@@ -446,16 +503,26 @@ class HybridGNNTrainer:
             s = self._transfer_streams[dev] = torch.cuda.Stream(dev)
         return s
 
+    def _active_trainers(self) -> List[Tuple[str, str]]:
+        """[(name, kind)] of the trainers with a share, failed ones out."""
+        out = []
+        cpu_b, accel_b = self.runtime.quantized_shares()
+        with self._state_lock:
+            failed = set(self._failed)
+        if cpu_b > 0 and "cpu" not in failed:
+            out.append(("cpu", "cpu"))
+        for i in range(self.cfg.n_accel):
+            name = f"accel{i}"
+            if name not in failed and accel_b > 0:
+                out.append((name, "accel"))
+        return out
+
     # ------------------------------------------------------- pipeline stages
 
     def _make_payload(self, it: int) -> PipelineItem:
         cpu_b, accel_b = self.runtime.quantized_shares()
-        shares: Dict[str, int] = {}
-        if cpu_b > 0:
-            shares["cpu"] = cpu_b
-        if accel_b > 0:
-            for i in range(self.cfg.n_accel):
-                shares[f"accel{i}"] = accel_b
+        shares = {name: (cpu_b if kind == "cpu" else accel_b)
+                  for name, kind in self._active_trainers()}
         payload = {"iteration": it, "shares": shares, "minibatch": {},
                    "features": {}, "t": {},
                    "targets": {n: self._next_targets(b)
@@ -674,7 +741,13 @@ class HybridGNNTrainer:
         p = item.payload
         t0 = time.perf_counter()
         streams = []
+        # the payload's own trainers (the DRM may have re-quantized a share
+        # to 0 since it was sampled), minus the ones that died since
+        with self._state_lock:
+            failed = set(self._failed)
         for name in list(p["features"]):
+            if name in failed:
+                continue
             if name == "cpu":
                 dev, stream = self.cpu_device, None
             else:
@@ -711,7 +784,15 @@ class HybridGNNTrainer:
     def _run_trainers(self, item: PipelineItem
                       ) -> Tuple[Params, Dict[str, float], Dict[str, float]]:
         p = item.payload
-        names = list(p["minibatch"])
+        # exactly the trainers this batch was sampled for, minus any that
+        # have failed since
+        with self._state_lock:
+            failed = set(self._failed)
+        names = [n for n in p["minibatch"] if n not in failed]
+        if not names:         # every trainer of this batch has died
+            zero = {k: torch.zeros_like(v) for k, v in self.params.items()}
+            return (zero, {"t_tc": 0.0, "t_ta": 0.0},
+                    {"loss": float("nan"), "acc": float("nan")})
         sync = Synchronizer(len(names), self.device)
         results: Dict[str, Dict[str, Any]] = {}
         errors: List[BaseException] = []
@@ -720,6 +801,16 @@ class HybridGNNTrainer:
                        if "cpu" in names else None)
 
         def work(idx: int, name: str) -> None:
+            if self._fail_at.get(name) == p["iteration"]:
+                # an injected death, not an error: zero gradients at
+                # weight 0, and the trainer leaves later payloads
+                with self._state_lock:
+                    self._failed.add(name)
+                sync.submit(idx, {k: torch.zeros_like(v)
+                                  for k, v in self.params.items()}, 0.0)
+                results[name] = {"loss": float("nan"), "acc": float("nan"),
+                                 "t_train": 0.0, "failed": True}
+                return
             try:
                 kind = "cpu" if name == "cpu" else "accel"
                 dev = (self.cpu_device if kind == "cpu"
@@ -748,10 +839,11 @@ class HybridGNNTrainer:
                     if n == "cpu"), default=0.0)
         t_ta = max((m["t_train"] for n, m in results.items()
                     if n != "cpu"), default=0.0)
-        w = {n: float(p["shares"][n]) for n in results}
+        ok = {n: m for n, m in results.items() if not m.get("failed")}
+        w = {n: float(p["shares"][n]) for n in ok}
         wsum = max(sum(w.values()), 1e-9)
-        loss = sum(float(m["loss"]) * w[n] for n, m in results.items()) / wsum
-        acc = sum(float(m["acc"]) * w[n] for n, m in results.items()) / wsum
+        loss = sum(float(m["loss"]) * w[n] for n, m in ok.items()) / wsum
+        acc = sum(float(m["acc"]) * w[n] for n, m in ok.items()) / wsum
         return avg, {"t_tc": t_tc, "t_ta": t_ta}, {"loss": loss, "acc": acc}
 
     def _apply_update(self, grads: Params) -> float:
@@ -893,7 +985,10 @@ class HybridGNNTrainer:
         iterations since the last refresh) and staleness rate, then the
         re-price (or, without a mapping, the drift anchor) and a fresh
         measurement window."""
-        reprice = self.cfg.hybrid and self.cfg.n_accel > 0
+        with self._state_lock:
+            any_failed = bool(self._failed)
+        reprice = (self.cfg.hybrid and self.cfg.n_accel > 0
+                   and not any_failed)
         if swapped:
             iters = max(self._iters_since_refresh, 1)
             self._refresh_bytes_per_iter = (
@@ -973,8 +1068,11 @@ class HybridGNNTrainer:
         prefetch overlap has its own drift trigger: an underperforming
         prefetcher (queue-full drops, windows evicted before their gather)
         re-prices the storage penalty even when the hit rate is stable.
-        Returns True when it re-priced."""
-        if not (self.cfg.hybrid and self.cache is not None):
+        Returns True when it re-priced.  After a trainer failure the shares
+        stay where the failure folded them."""
+        with self._state_lock:
+            any_failed = bool(self._failed)
+        if not (self.cfg.hybrid and self.cache is not None) or any_failed:
             return False
         stats = self.loader.snapshot("window")
         if stats.total_rows == 0:
@@ -992,13 +1090,122 @@ class HybridGNNTrainer:
         self._reprice_mapping(measured, self._window_alpha(stats))
         return True
 
+    # ------------------------------------------- model-predictive knob loop
+
+    def _build_knob_model(self, mean_times: StageTimes,
+                          iters: int) -> CalibratedKnobModel:
+        """Calibrate the Eq. 7/8 knob model on one measured window: the
+        mean stage times anchor it at the current knobs, and the window's
+        counter deltas (dup factor, hit rate, prefetch hit and drop rates,
+        touched windows, refresh admission, hit decay) let ``predict``
+        re-price only the knob-sensitive components."""
+        src = self.loader.source
+        cum = self.loader.snapshot_stats()
+        prev = self._last_load_stats
+        self._last_load_stats = cum
+        d_total = max(cum.total_rows - prev.total_rows, 0)
+        d_unique = max(cum.unique_rows - prev.unique_rows, 1)
+        d_hit = max(cum.hit_rows - prev.hit_rows, 0)
+        wt = int(getattr(src, "gather_windows_touched", 0))
+        d_windows = max(wt - self._last_windows_touched, 0)
+        self._last_windows_touched = wt
+        pf = self.prefetcher
+        drop_rate = 0.0
+        if pf is not None and pf.submitted + pf.dropped > 0:
+            drop_rate = pf.dropped / (pf.submitted + pf.dropped)
+        row_bytes = (self.cache.row_bytes if self.cache is not None
+                     else self.dataset.feat_dim * 4)
+        return CalibratedKnobModel(
+            host=PLATFORMS[self.cfg.host_platform],
+            accel=PLATFORMS[self.cfg.accel_platform],
+            ref=self._knobs,
+            signals=SignalSnapshot(
+                t_sc=mean_times.t_sc, t_sa=mean_times.t_sa,
+                t_load=mean_times.t_load,
+                t_load_stall=mean_times.t_load_stall,
+                t_tran=mean_times.t_tran, t_tc=mean_times.t_tc,
+                t_ta=mean_times.t_ta,
+                dup_factor=(d_total / d_unique if d_total else 1.0),
+                hit_rate=(d_hit / d_total if d_total else 0.0),
+                prefetch_hit_rate=self._measured_prefetch_overlap(),
+                prefetch_drop_rate=drop_rate,
+                touched_windows=max(d_windows // max(iters, 1), 1),
+                loaded_rows_per_iter=d_unique / max(iters, 1),
+                refresh_bytes_per_iter=self._refresh_bytes_per_iter,
+                hit_decay_per_iter=self._hit_decay_per_iter,
+                row_bytes=int(row_bytes),
+                disk_tier=(self.feature_tier == "disk")))
+
+    def _apply_knobs(self, k: KnobState) -> None:
+        """Apply an accepted (or rolled-back) knob state at an iteration
+        boundary: stage threads through the assignment (the loader's pool
+        rebuilds at its next gather), the prefetch queue by resize, rebuild
+        or close, the window LRU by the source's immediate trim, the
+        refresh cadence by the boundary gate and its fraction by the
+        cache's admission bound.  Never touches shares, RNG streams or
+        batch composition, so losses stay bit-identical to a static run.
+        A sample stage running meanwhile holds its own reference to the
+        old prefetcher (``_submit_prefetch``), and a closed one drops."""
+        prev, self._knobs = self._knobs, k
+        a = self.runtime.assignment
+        a.threads["sample"] = k.sample_threads
+        a.threads["load"] = k.load_threads
+        a.threads["train"] = k.train_threads
+        src = self.loader.source
+        if k.mmap_lru_windows != prev.mmap_lru_windows:
+            if hasattr(src, "set_lru_windows"):
+                src.set_lru_windows(k.mmap_lru_windows)
+            elif hasattr(src, "lru_windows"):
+                src.lru_windows = int(k.mmap_lru_windows)
+        if k.prefetch_windows != prev.prefetch_windows:
+            with self._state_lock:
+                pf_dead = "prefetcher" in self._degraded
+            if k.prefetch_windows <= 0:
+                pf, self.prefetcher = self.prefetcher, None
+                if pf is not None:
+                    pf.close()
+            elif self.prefetcher is not None:
+                self.prefetcher.resize(k.prefetch_windows)
+            elif not pf_dead:
+                self.prefetcher = self._build_prefetcher(k.prefetch_windows)
+        self._refresh_period = max(1, k.refresh_period)
+        if self.cache is not None and k.refresh_frac != prev.refresh_frac:
+            shards = self.cache.shards if self._sharded else [self.cache]
+            for sh in shards:
+                sh.max_refresh_frac = float(k.refresh_frac)
+
+    def _maybe_autotune(self, times: StageTimes) -> None:
+        """One boundary step of the knob autotuner: feed the measured
+        times; a closing window may hand back a state to apply, a new trial
+        move or the exact pre-move state of a trial that regressed past the
+        hysteresis band."""
+        if self.autotuner is None:
+            return
+        nxt = self.autotuner.step(times, self._build_knob_model,
+                                  self._knobs)
+        if nxt is not None:
+            self._apply_knobs(nxt)
+
+    def autotune_report(self) -> Dict[str, Any]:
+        """The autotuner's trajectory and the knob state it holds."""
+        out: Dict[str, Any] = {
+            "enabled": self.autotuner is not None,
+            "knobs": dataclasses.asdict(self._knobs),
+        }
+        if self.autotuner is not None:
+            out.update(self.autotuner.report())
+        return out
+
     # ----------------------------------------------------------------- train
 
     def train(self, num_iterations: int) -> List[IterationMetrics]:
         stages = [Stage("sample", self._stage_sample),
                   Stage("load", self._stage_load),
                   Stage("transfer", self._stage_transfer)]
-        pipe = PrefetchPipeline(stages, depth=self.cfg.tfp_depth)
+        pipe = PrefetchPipeline(
+            stages, depth=self.cfg.tfp_depth,
+            watchdog_seconds=self.cfg.pipeline_watchdog_seconds,
+            fault_injector=self.fault_injector)
         payloads = (self._make_payload(i) for i in range(num_iterations))
         for item in pipe.run(payloads):
             p = item.payload
@@ -1010,6 +1217,18 @@ class HybridGNNTrainer:
                 t_tran=p["t"].get("t_tran", 0.0),
                 t_tc=ttimes["t_tc"], t_ta=ttimes["t_ta"],
                 t_load_stall=p["t"].get("t_load_stall", 0.0))
+            # failed trainers: the dead accelerators' rows fold into the
+            # CPU share, and their recent-rows history is freed
+            with self._state_lock:
+                failed = set(self._failed)
+            if failed:
+                a = self.runtime.assignment
+                dead_accel = sum(1 for n in failed if n != "cpu")
+                if dead_accel and a.n_accel > self.cfg.n_accel - dead_accel:
+                    a.cpu_batch += a.accel_batch * dead_accel
+                    a.n_accel = self.cfg.n_accel - dead_accel
+                for n in failed:
+                    self.loader.drop_recent(n)
             self.runtime.end_iteration(times)
             self._iters_done += 1
             self._iters_since_refresh += 1
@@ -1019,6 +1238,7 @@ class HybridGNNTrainer:
             if self._iters_done % self._refresh_period == 0:
                 self._maybe_refresh_cache()
             self._maybe_refresh_mapping()
+            self._maybe_autotune(times)
             edges = sum(mb.edges_traversed()
                         for mb in p["minibatch"].values())
             self.history.append(IterationMetrics(
@@ -1096,8 +1316,8 @@ class HybridGNNTrainer:
         """Degraded-mode report: ``status`` ("ok" until a component
         degraded for good), one event per degraded component, and live
         counters: the prefetcher's supervision, the dynamic refresh's
-        failure budget and the storage tier's retries, fallbacks and hint
-        failures."""
+        failure budget, the storage tier's retries, fallbacks and hint
+        failures, and the failed trainers."""
         comp: Dict[str, Any] = {}
         pf = self.prefetcher
         if pf is not None:
@@ -1125,8 +1345,11 @@ class HybridGNNTrainer:
                 "fadvise_failures": int(src.fadvise_failures),
             }
         with self._state_lock:
+            failed = sorted(self._failed)
             degraded = sorted(self._degraded)
             events = [dict(e) for e in self._degraded.values()]
+        if failed:
+            comp["trainers"] = {"failed": failed}
         return {
             "status": "degraded" if degraded else "ok",
             "degraded": degraded,

@@ -1,8 +1,8 @@
 """Performance model (paper Section V, Eqs. 5-13).
 
-Port of ``repro/core/perfmodel.py`` (the stage model, the design-time
-task mapping and the epoch-time model of Table 6; the knob-space model of
-the autotuner is not ported yet).
+Port of ``repro/core/perfmodel.py``: the stage model, the design-time
+task mapping, the epoch-time model of Table 6 and the knob-space model of
+the autotuner (``CalibratedKnobModel``).
 Predicts per-stage times from algorithmic parameters (mini-batch edge and
 vertex counts, layer widths) and platform data, and derives the *initial*
 coarse-grained task mapping (CPU vs accelerator mini-batch shares).  The
@@ -21,7 +21,9 @@ from typing import Callable, Dict, Sequence, Tuple
 __all__ = ["PlatformSpec", "PLATFORMS", "WorkloadSpec", "StagePrediction",
            "predict", "initial_task_mapping", "mteps",
            "platform_for_device_name", "calibrate_sampling",
-           "predict_epoch_time"]
+           "predict_epoch_time",
+           "KnobState", "KnobBounds", "SignalSnapshot",
+           "CalibratedKnobModel"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,6 +385,223 @@ def initial_task_mapping(host: PlatformSpec, accel: PlatformSpec,
     cpu_share = best[1]
     return {"cpu": cpu_share,
             "accel_each": (total_batch - cpu_share) // max(n_accel, 1)}
+
+
+# --------------------------------------------------------------------------
+# Knob-space model for the online DRM autotuner (the reference's
+# docs/drm-autotuning.md describes it)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KnobState:
+    """The knob vector the DRM's online autotuner searches.
+
+    Every knob here is performance-only: none touches RNG streams, batch
+    composition or assembled feature values, so any trajectory through
+    knob space leaves training losses bit-identical to a static run.
+    Workload *shares* (cpu/accel batch split) are deliberately absent —
+    those stay with Algorithm 1's balance_work and the mapping re-price.
+    """
+    prefetch_windows: int = 0     # WindowPrefetcher queue depth (0 = off)
+    mmap_lru_windows: int = 0     # MmapFeatures window bound (0 = unbounded)
+    sample_threads: int = 2       # Assignment.threads["sample"]
+    load_threads: int = 2         # Assignment.threads["load"] (gather pool)
+    train_threads: int = 2        # Assignment.threads["train"]
+    refresh_period: int = 1       # iterations between refresh drift checks
+    refresh_frac: float = 0.25    # max fraction of cache slots swapped
+
+    @property
+    def total_threads(self) -> int:
+        return self.sample_threads + self.load_threads + self.train_threads
+
+
+@dataclasses.dataclass(frozen=True)
+class KnobBounds:
+    """Hard feasibility box for autotuner proposals.
+
+    Defaults freeze every subsystem-dependent knob (``lo == hi``): the
+    trainer widens exactly the ranges whose subsystems exist (a prefetch
+    range only when the source can ``prefetch_rows``, refresh ranges only
+    with a dynamic cache).  Thread knobs are bounded by conservation —
+    the proposal must keep the total thread count and give every stage at
+    least ``min_stage_threads`` — matching balance_thread's invariant.
+    """
+    prefetch_windows: Tuple[int, int] = (0, 0)
+    mmap_lru_windows: Tuple[int, int] = (0, 0)
+    min_stage_threads: int = 1
+    total_threads: int = 6
+    refresh_period: Tuple[int, int] = (1, 1)
+    refresh_frac: Tuple[float, float] = (0.25, 0.25)
+
+    def contains(self, k: KnobState) -> bool:
+        def _in(v, box):
+            return box[0] <= v <= box[1]
+        return (_in(k.prefetch_windows, self.prefetch_windows)
+                and _in(k.mmap_lru_windows, self.mmap_lru_windows)
+                and _in(k.refresh_period, self.refresh_period)
+                and _in(k.refresh_frac, self.refresh_frac)
+                and min(k.sample_threads, k.load_threads,
+                        k.train_threads) >= self.min_stage_threads
+                and k.total_threads == self.total_threads)
+
+
+@dataclasses.dataclass(frozen=True)
+class SignalSnapshot:
+    """Measured signals for one autotune window (stage-time means plus
+    counter deltas), the calibration input of ``CalibratedKnobModel``.
+
+    Time fields mirror ``drm.StageTimes`` (kept scalar here so the model
+    layer stays import-free of the DRM layer).  Counter-derived fields
+    are window deltas normalized per iteration where noted.
+    """
+    t_sc: float = 0.0
+    t_sa: float = 0.0
+    t_load: float = 0.0
+    t_load_stall: float = 0.0     # exposed storage stall inside t_load
+    t_tran: float = 0.0
+    t_tc: float = 0.0
+    t_ta: float = 0.0
+    dup_factor: float = 1.0       # LoadStats.dup_factor over the window
+    hit_rate: float = 0.0         # cache hit rate over the window
+    prefetch_hit_rate: float = 0.0   # warm window touches / all touches
+    prefetch_drop_rate: float = 0.0  # queue-full drops / submits
+    touched_windows: float = 0.0  # mmap windows the load stage touches/iter
+    loaded_rows_per_iter: float = 0.0
+    refresh_bytes_per_iter: float = 0.0  # admission traffic at ref knobs
+    hit_decay_per_iter: float = 0.0      # hit-rate points lost per
+                                         # iteration since the last refresh
+    row_bytes: int = 4
+    disk_tier: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class CalibratedKnobModel:
+    """Eq. 7/8-grounded predictor over the autotuner's knob space.
+
+    Anchored on measurement: stage times come from a real window at the
+    reference knobs ``ref`` and only the knob-sensitive *components* are
+    re-priced —
+
+      * CPU-stage compute scales inversely with the stage's thread share
+        (balance_thread's own assumption),
+      * the exposed storage stall is split out of ``t_load`` and scaled
+        by the prefetch subsystem's predicted coverage: queue depth sets
+        the drop rate of the advisory (lossy) submit path, and the window
+        LRU must hold the per-iteration working set or a prefetched
+        window is evicted before its gather (Eq. 7's storage penalty x
+        (1 - overlap) term, with overlap now a function of the knobs),
+      * refresh cadence/frac trade the measured admission traffic
+        (priced at the tier and PCIe bandwidths — the Eq. 7/8 refresh
+        term) against hit-rate staleness (a slower cadence lets the
+        measured decay run longer, and the extra unique misses are
+        priced as load + transfer traffic).
+
+    The predictor is advisory: the autotuner verifies every accepted move
+    against *measured* iteration time and rolls back past the hysteresis
+    band, so a mis-calibrated sensitivity costs one trial window, never a
+    run.
+    """
+    host: PlatformSpec
+    accel: PlatformSpec
+    ref: KnobState
+    signals: SignalSnapshot
+    overlap_cap: float = 0.95     # prefetch can never hide the last 5%
+
+    # ------------------------------------------------------------ pricing
+
+    def _load_bw(self) -> float:
+        s = self.signals
+        bw = self.host.mem_bw_gbps
+        if s.disk_tier and self.host.storage_bw_gbps > 0.0:
+            bw = min(bw, self.host.storage_bw_gbps)
+        return max(bw, 1e-3) * 1e9
+
+    def _pcie_bw(self) -> float:
+        return max(self.accel.interconnect_gbps, 1e-3) * 1e9
+
+    def _coverage(self, k: KnobState) -> float:
+        """Predicted fraction of the storage stall the prefetch subsystem
+        hides at knobs ``k`` (the Eq. 7 overlap term as a knob function)."""
+        if k.prefetch_windows <= 0:
+            return 0.0
+        s, r = self.signals, self.ref
+        if r.prefetch_windows > 0 and s.prefetch_drop_rate > 0.0:
+            # the submit path is lossy: a full queue drops the request.
+            # Halving the depth roughly doubles the measured drop rate,
+            # doubling it halves it (M/M/1-ish occupancy scaling).
+            drop = min(s.prefetch_drop_rate
+                       * r.prefetch_windows / k.prefetch_windows, 1.0)
+        else:
+            # no measurement at this depth yet: saturating prior — each
+            # extra queue slot halves the chance a submit finds it full
+            drop = 0.5 ** k.prefetch_windows
+        depth_term = max(1.0 - drop, 0.0)
+        # a prefetched window must survive until its gather: an LRU bound
+        # below the per-iteration working set evicts it first
+        ws = max(self.signals.touched_windows, 1.0)
+        lru_term = (1.0 if k.mmap_lru_windows <= 0
+                    else min(1.0, k.mmap_lru_windows / ws))
+        return self.overlap_cap * depth_term * lru_term
+
+    def _stall(self, k: KnobState) -> float:
+        """Predicted exposed storage stall (seconds) at knobs ``k``."""
+        s, r = self.signals, self.ref
+        exposed = min(max(s.t_load_stall, 0.0), max(s.t_load, 0.0))
+        if exposed <= 0.0:
+            return 0.0
+        # reconstruct the *full* storage penalty from the exposed share:
+        # at the reference knobs the prefetcher already hid
+        # prefetch_hit_rate of the window touches
+        full = exposed
+        if r.prefetch_windows > 0:
+            hidden = min(max(s.prefetch_hit_rate, 0.0), self.overlap_cap)
+            full = exposed / max(1.0 - hidden, 1.0 - self.overlap_cap)
+        return full * (1.0 - self._coverage(k))
+
+    def _admission_scale(self, k: KnobState) -> float:
+        """Admission bytes/iter at ``k`` relative to the reference: a
+        longer period amortizes further, a larger frac swaps more rows."""
+        r = self.ref
+        return ((r.refresh_period / max(k.refresh_period, 1))
+                * (k.refresh_frac / max(r.refresh_frac, 1e-9)))
+
+    def _staleness_rows(self, k: KnobState) -> float:
+        """Extra unique miss rows per iteration from cache staleness at
+        cadence ``k.refresh_period`` relative to the reference (negative
+        = a faster cadence recovers hits).  Calibrated from the measured
+        per-iteration hit decay; 0 when no decay was observed."""
+        s, r = self.signals, self.ref
+        if s.hit_decay_per_iter <= 0.0 or s.loaded_rows_per_iter <= 0.0:
+            return 0.0
+        # average staleness ~ period/2 iterations of decay
+        d_hit = s.hit_decay_per_iter * (k.refresh_period
+                                        - r.refresh_period) / 2.0
+        d_hit = min(max(d_hit, -(1.0 - s.hit_rate)), s.hit_rate)
+        return s.loaded_rows_per_iter * d_hit / max(s.dup_factor, 1.0)
+
+    # ------------------------------------------------------------ predict
+
+    def predict(self, k: KnobState) -> float:
+        """Predicted iteration time (max over stages, Eq. 6) at ``k``."""
+        s, r = self.signals, self.ref
+
+        def scale(ref_n: int, new_n: int) -> float:
+            return ref_n / max(new_n, 1)
+
+        t_sc = s.t_sc * scale(r.sample_threads, k.sample_threads)
+        t_tc = s.t_tc * scale(r.train_threads, k.train_threads)
+        stall_ref = min(max(s.t_load_stall, 0.0), max(s.t_load, 0.0))
+        gather = ((s.t_load - stall_ref)
+                  * scale(r.load_threads, k.load_threads))
+        adm_bytes = (max(s.refresh_bytes_per_iter, 0.0)
+                     * self._admission_scale(k))
+        stale_bytes = self._staleness_rows(k) * s.row_bytes
+        t_load_k = max(gather + self._stall(k)
+                       + (adm_bytes + stale_bytes) / self._load_bw(), 0.0)
+        t_tran_k = max(s.t_tran
+                       + (adm_bytes + stale_bytes) / self._pcie_bw(), 0.0)
+        return max(s.t_sa, t_sc, t_load_k, t_tran_k, t_tc, s.t_ta)
 
 
 def calibrate_sampling(sampler_fn: Callable[[int], None],

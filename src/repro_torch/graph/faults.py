@@ -30,11 +30,10 @@ faults exercise:
   * **raises** — correctness-critical failures still raise: a load-path
     gather whose retries AND fallback are exhausted.
 
-The port consults the hooks inside ``MmapFeatures`` and
-``WindowPrefetcher``.  The trainer's ``fault_injector`` argument and the
-``refresh.stage`` / ``pipeline.<stage>`` hooks are not ported yet (ROADMAP,
-port queue: fault injection and degraded modes); the table keeps the
-reference's names so one schedule describes both packages.
+Every hook in the table below fires in the port: inside ``MmapFeatures``,
+``WindowPrefetcher``, ``FeatureCache.stage`` and ``PrefetchPipeline``,
+reached through the trainer's ``fault_injector`` argument.  The names are
+the reference's, so one schedule describes both packages.
 
 Hook points (``FaultSpec.op``):
 

@@ -277,6 +277,8 @@ class FeatureCache:
         self.refresh_hysteresis = float(refresh_hysteresis)
         self.refreshes = 0               # commits that moved rows
         self.refresh_swapped_rows = 0
+        self.fault_injector = None       # optional FaultInjector (hook:
+                                         #   "refresh.stage")
         self.stage_failures = 0          # stage() attempts that raised
         self._staged: Optional[_StagedRefresh] = None
         # decayed hotness estimates: frontier positions observed per cached
@@ -565,9 +567,19 @@ class FeatureCache:
         The admitted-row gather then runs with the lock released, so it
         can run in a background thread while lookups proceed.  The plan is
         pinned to the version it was computed against and dropped if a
-        commit lands first.  A gather that raises counts in
-        ``stage_failures`` and leaves no plan.  Returns the planned swap
-        count."""
+        commit lands first.  A gather that raises, or an injected
+        ``refresh.stage`` fault, counts in ``stage_failures`` and leaves no
+        plan: the cache keeps serving its version and the trainer retries
+        at the next drift boundary.  Returns the planned swap count."""
+        if self.fault_injector is not None:
+            try:
+                self.fault_injector.fire("refresh.stage")
+            except BaseException:
+                # counted under the lock: health() reads it from the main
+                # thread while an async stage runs in the background
+                with self._lock:
+                    self.stage_failures += 1
+                raise
         with self._lock:
             if self.capacity == 0:
                 return 0
@@ -957,6 +969,15 @@ class ShardedFeatureCache:
     def kernel_pipeline_depth(self, value: int) -> None:
         for s in self.shards:
             s.kernel_pipeline_depth = value
+
+    @property
+    def fault_injector(self):
+        return self.shards[0].fault_injector
+
+    @fault_injector.setter
+    def fault_injector(self, value) -> None:
+        for s in self.shards:
+            s.fault_injector = value
 
     # aggregated observability
 

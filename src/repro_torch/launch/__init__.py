@@ -1,1 +1,2 @@
-"""Launchers of the port (``repro/launch``): the serving CLI."""
+"""Launchers of the port (``repro/launch`` and ``examples/``): the serving
+CLI and the GNN training CLI."""

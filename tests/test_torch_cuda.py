@@ -721,3 +721,72 @@ def test_trainer_prefetch_on_card_bit_equal_to_off(cuda, tmp_path):
     assert runs["bounded"][1]["open_windows"] <= \
         4 + runs["bounded"][1]["pin_blocked_evictions"]
     assert all(r[2]["status"] == "ok" for r in runs.values())
+
+
+def _card_failure_run(inject, device=None):
+    ds = make_dataset("ogbn-products", scale=0.01, seed=0)
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5),
+                  agg_impl="kernel_fused")
+    tr = HybridGNNTrainer(ds, g, HybridConfig(
+        total_batch=512, n_accel=2, hybrid=True, use_drm=False, tfp_depth=0,
+        cache_fraction=0.2, use_accel_sampler=False, ckpt_every=1,
+        accel_platform="rtx-a5000"), device=device)
+    if inject:
+        tr.inject_failure("accel0", 2)
+    # the checkpoint callback runs at the end of every iteration: it reads
+    # the launch counts there
+    per_iter = []
+    tr.set_checkpoint_callback(
+        lambda it, p, o: per_iter.append(dict(ops.kernel_launches())))
+    ops.reset_kernel_launches()
+    hist = tr.train(6)
+    tr.close()
+    return tr, hist, per_iter
+
+
+def test_trainer_failure_on_card_survives_and_drops_kernels(cuda):
+    """accel0 dies at iteration 2 on the card: every loss stays finite,
+    the shares add up over the survivors, and from iteration 2 on only
+    accel1 runs K2 (from iteration 3 on, K1 too: iteration 2's combine ran
+    before the trainer died)."""
+    tr, hist, per_iter = _card_failure_run(True)
+    assert all(math.isfinite(m.loss) for m in hist)
+    assert tr.health()["components"]["trainers"] == {"failed": ["accel0"]}
+    cpu_b, accel_b = hist[-1].assignment
+    assert cpu_b + accel_b * tr.runtime.assignment.n_accel == 512
+    assert accel_b > 0
+    k1 = np.diff([0] + [c["cache_combine"] for c in per_iter])
+    k2 = np.diff([0] + [c["fused_update"] for c in per_iter])
+    assert list(k1) == [2, 2, 2, 1, 1, 1]
+    assert list(k2) == [4, 4, 2, 2, 2, 2]
+
+
+def test_autotune_on_card_bit_equal_to_off(cuda, tmp_path):
+    """The knob autotuner on the card, from a misconfigured start over the
+    mmap spill: the same losses bit for bit as the static run."""
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5),
+                  agg_impl="kernel_fused")
+    runs = {}
+    for auto in (True, False):
+        ds = make_dataset("ogbn-products", scale=0.01, seed=0,
+                          feature_backend="mmap", partition_rows=4096,
+                          spill_dir=str(tmp_path / f"spill-{auto}"))
+        tr = HybridGNNTrainer(ds, g, HybridConfig(
+            total_batch=512, n_accel=1, hybrid=False, use_drm=False,
+            tfp_depth=2, cache_fraction=0.2, use_accel_sampler=False,
+            mmap_lru_windows=1, initial_threads=(4, 1, 1), auto_tune=auto,
+            autotune_interval=2, autotune_warmup_windows=0,
+            accel_platform="rtx-a5000"))
+        if runs:
+            tr.set_params(runs[True][2])
+        w0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        ops.reset_kernel_launches()
+        hist = tr.train(10)
+        tr.close()
+        runs[auto] = ([m.loss for m in hist], tr.autotune_report(), w0,
+                      ops.kernel_launches())
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1]["enabled"] and not runs[False][1]["enabled"]
+    for auto in runs:
+        assert runs[auto][3]["cache_combine"] >= 10
+        assert runs[auto][3]["fused_update"] >= 20

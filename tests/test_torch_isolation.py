@@ -82,14 +82,22 @@ def test_trainer_default_device_requires_cuda(monkeypatch):
         HybridGNNTrainer(ds, g, HybridConfig(total_batch=64))
 
 
-@pytest.mark.parametrize("knob,item", [
-    ({"auto_tune": True}, "knob autotuner"),
-    ({"pipeline_watchdog_seconds": 1.0}, "fault injection"),
+@pytest.mark.parametrize("knob,wired", [
+    ({"auto_tune": True}, lambda tr: tr.autotuner is not None),
+    ({"pipeline_watchdog_seconds": 1.0},
+     lambda tr: tr.cfg.pipeline_watchdog_seconds == 1.0),
 ], ids=["auto_tune", "pipeline_watchdog_seconds"])
-def test_out_of_slice_knob_raises(knob, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP, port queue: "
-                                                  f"{item}"):
-        HybridConfig(**knob)
+def test_out_of_slice_knob_raises(knob, wired):
+    """The last two knobs that raised are ported: no ``HybridConfig`` knob
+    raises ``NotImplementedError`` now, and a trainer built with either
+    one trains."""
+    ds = make_dataset("ogbn-products", scale=0.0005, seed=0)
+    g = GNNConfig(layer_dims=(100, 16, 47), fanouts=(3, 2))
+    tr = HybridGNNTrainer(ds, g, HybridConfig(total_batch=64, **knob),
+                          device="cpu")
+    assert wired(tr)
+    assert len(tr.train(2)) == 2
+    tr.close()
 
 
 @pytest.mark.parametrize("knob", [
@@ -140,11 +148,19 @@ def test_bad_sharded_plane_knob_rejected(knob):
 
 
 def test_fault_injector_raises():
+    """``fault_injector`` is ported: the trainer takes it without raising,
+    hands it to the cache, and its pipeline fires the stage hooks."""
+    from repro_torch.graph import FaultInjector
     ds = make_dataset("ogbn-products", scale=0.0005, seed=0)
     g = GNNConfig(layer_dims=(100, 16, 47), fanouts=(3, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HybridGNNTrainer(ds, g, HybridConfig(total_batch=64), device="cpu",
-                         fault_injector=object())
+    inj = FaultInjector([])
+    tr = HybridGNNTrainer(ds, g, HybridConfig(total_batch=64,
+                                              cache_fraction=0.2),
+                          device="cpu", fault_injector=inj)
+    assert tr.cache.fault_injector is inj
+    tr.train(2)
+    tr.close()
+    assert inj.report()["calls"]["pipeline.load"] == 2
 
 
 @pytest.mark.parametrize("backend", ["partitioned", "mmap"])
