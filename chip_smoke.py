@@ -155,6 +155,29 @@ Phases, each printing one JSON line:
                card against the host from the same weights; (e)
                repro_torch.launch.serve's main at its defaults on
                llama3.2-1b (the stepwise route, no K8)
+  lm_train     LM training at llama3.2-1b full width and depth (bf16,
+               attn_impl="flash", remat, random weights from a seed):
+               (a) K8's gradient at the training shape [1, 4096, 8, 4, 64]:
+               autograd through ops.flash_attention (K8 forward, the
+               reference's recompute VJP) bit-equal to the plain forward
+               and backward on the card, the forward within K8's
+               tolerance, forward + backward timed beside SDPA's (timed
+               only); (b) TokenPipeline(4 x 4096, depth 2) into
+               make_train_step with 4 microbatches and AdamW under the
+               cosine schedule, 8 steps: finite losses, ms per step (median
+               of steps 2-7), tok/s, peak device memory, K8 launches per
+               step equal to 16 layers x 4 microbatches x 2 (forward and
+               remat recompute), then one more step traced (device ms by
+               kernel kind, idle share); (c) one step through flash and
+               one through blocked from the same weights on 1 x 4096
+               tokens: losses, global gradient norms and updated
+               parameters within stated bf16 bounds; (d) depth 2, 1 x 512
+               tokens, card against host from the same weights: loss and
+               every gradient leaf; (e) python -m repro_torch.launch.train
+               on smollm-135m (full width, 4 x 512, flash) as a subprocess
+               for 10 steps with a checkpoint every 5, then again for 15,
+               restoring step 10: wall time, losses, checkpoint bytes (the
+               directory under build/ removed after)
 
 The kernels phase also holds K8 (flash attention) against its plain version
 at the prefill's shape in f32 (the FMA body) and bf16 (the tensor-core
@@ -367,6 +390,20 @@ def timed(fn, prefix: str = "") -> dict:
     """Both readings of ``fn``: ``{prefix}ms`` (device time alone, L2
     flushed) and ``{prefix}call_ms`` (one host-inclusive call)."""
     return {f"{prefix}ms": device_ms(fn), f"{prefix}call_ms": call_ms(fn)}
+
+
+def event_timed(fn, prefix: str = "", reps: int = 20) -> dict:
+    """``timed`` for a call whose backward autograd launches from its own
+    device thread: the device time from CUDA events behind a device sleep
+    (flushes subtracted), since the profiler's traced windows of such calls
+    lost records in two of four full runs (the first flush of the port's
+    forward + backward in every window of two runs, one of SDPA's in
+    another)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return {f"{prefix}ms": _event_ms(fn, reps), f"{prefix}call_ms": call_ms(fn),
+            f"{prefix}timing": "events"}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2143,6 +2180,321 @@ def phase_serve(dev: torch.device) -> dict:
     return res
 
 
+# The LM training phase (lm_train): llama3.2-1b at full width and depth.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 4, 4096, 4, 8
+TRAIN_LR = 3e-4
+TRAIN_HOST_LAYERS, TRAIN_HOST_SEQ = 2, 512
+# (c) flash vs blocked, one AdamW step from the same weights and 1 x 4096
+# tokens.  The CPU rehearsal (llama3.2-1b widths, 4 layers, vocab cut to
+# 8,192, 1 x 512 zipf tokens) gave a loss difference of 4.3e-4, global
+# gradient norms 1.4e-4 apart (relative), and 0.69 % of a leaf's bf16
+# parameters changed at most; the loss and norm bounds leave 12x and 70x
+# for 4x the depth and 8x the tokens (the reduced config, 128 wide, gave
+# 3.5e-3 for the norms).  The changed share is a reading more than a
+# bound: on the card at full size 4.3 % of a leaf changed (NVIDIA H100
+# 80GB HBM3, 700 W), against the rehearsal's 0.69 %, so it is held to a
+# quarter.  The bound that matters is per parameter: 2 lr (a gradient whose
+# sign differs between the routes; a first AdamW step moves a weight by
+# less than lr) plus two bf16 ulps of |p| + lr (the two roundings).
+TRAIN_LOSS_TOL, TRAIN_GNORM_REL, TRAIN_CHANGED_FRAC = 5e-3, 1e-2, 0.25
+# (d) card vs host at depth 2, 1 x 512 tokens, bf16.  The rehearsal's proxy
+# (the host in bf16 against the same weights in f32) differed by 1.7e-4 in
+# the loss and at most 1.45 % (relative L2, the embedding's, whose rows of
+# frequent tokens sum hundreds of bf16 terms) in a gradient leaf; two bf16
+# routes differ by about sqrt(2) of that: the bounds leave 8x and 3.4x.
+HOST_LOSS_TOL, HOST_GRAD_REL = 2e-3, 0.05
+CLI_ARCH, CLI_STEPS, CLI_RESUME_STEPS = "smollm-135m", 10, 15
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |t| (8 significant bits)."""
+    a = t.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def lm_train_grad(dev: torch.device, peak_bw: float) -> dict:
+    """(a) K8's gradient at the training shape: autograd through
+    ``ops.flash_attention`` (K8 forward, the recompute VJP) against the
+    plain forward and backward on the card, the same cotangent; forward +
+    backward timed beside SDPA's (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    cfg = get_arch(LM_ARCH)
+    b, s, hkv, g, d = (1, TRAIN_SEQ, cfg.n_kv, cfg.n_heads // cfg.n_kv,
+                       cfg.hd)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v = rand(b, s, hkv, g, d), rand(b, s, hkv, d), rand(b, s, hkv, d)
+    cot = rand(b, s, hkv, g, d)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(qg, kg, vg, cfg.q_block)
+    got = torch.autograd.grad(out, (qg, kg, vg), cot)
+    want = ref.flash_attention_vjp(q, k, v, cot, cfg.q_block)
+    torch.cuda.synchronize()
+    for name, a, w in zip("qkv", got, want):
+        check(same_bits(a, w), f"K8 gradient d_{name} differs from the "
+              f"plain backward's bits")
+    fwd_err = close(out.detach(), ref.flash_attention(q, k, v, cfg.q_block),
+                    K8_TOL[torch.bfloat16], K8_TOL[torch.bfloat16],
+                    "K8 forward at the training shape")
+    del out, got, want
+    # SDPA's layout: [B, H, S, D], query head h*G + g on KV head h
+    qt = q.view(b, s, hkv * g, d).transpose(1, 2).requires_grad_()
+    kt, vt = (t.transpose(1, 2).requires_grad_() for t in (k, v))
+    cot_t = cot.view(b, s, hkv * g, d).transpose(1, 2)
+
+    def port():
+        return torch.autograd.grad(ops.flash_attention(
+            qg, kg, vg, cfg.q_block), (qg, kg, vg), cot)
+
+    def library():
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt),
+            cot_t)
+    # the work: the forward's 2 products and the VJP's 5 (scores again,
+    # d_v, d_p, d_q, d_k), each over the causal half of S x S; bytes: q, k,
+    # v and the cotangent read, the output and d_q, d_k, d_v written
+    flops = 7 * b * hkv * g * d * s * s
+    byts = 2 * nbytes(q, k, v, cot) + nbytes(q)
+    bound_ms = max(byts / peak_bw, flops / BF16_TFLOPS) * 1e3
+    return dict(shape=[b, s, hkv, g, d], dtype="bfloat16",
+                grads_bit_equal=True, forward_max_abs_err=fwd_err,
+                **event_timed(port, "train_"),
+                **event_timed(library, "train_library_"),
+                train_bound_ms=bound_ms,
+                train_bound_by=("bytes" if byts / peak_bw
+                                >= flops / BF16_TFLOPS else "operations"))
+
+
+def device_breakdown(step_fn) -> dict:
+    """One profiled step: device ms summed by kernel kind (K8, GEMMs, the
+    rest) and for the 15 costliest kernel names, and the share of the
+    step's wall time the device was idle (the profiler's own overhead
+    included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = {"k8": 0.0, "gemm": 0.0, "other": 0.0}
+    by_name: dict = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        us = e.time_range.end - e.time_range.start
+        spans.append((e.time_range.start, e.time_range.end))
+        name = e.name.lower()
+        kind = ("k8" if "flash_fwd" in name else
+                "gemm" if any(t in name for t in ("gemm", "cutlass", "xmma",
+                                                  "nvjet", "sm90_")) else
+                "other")
+        kinds[kind] += us / 1e3
+        ms_n = by_name.setdefault(e.name[:90], [0.0, 0])
+        ms_n[0] += us / 1e3
+        ms_n[1] += 1
+    busy, end = 0.0, -1.0
+    for lo, hi in sorted(spans):            # the union of device intervals
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return dict(profiled_step_ms=wall * 1e3, device_ms_by_kind=kinds,
+                top_kernels=[[n, ms, c] for n, (ms, c) in top],
+                device_busy_ms=busy / 1e3,
+                idle_share=max(0.0, 1.0 - busy / 1e3 / (wall * 1e3)))
+
+
+def phase_lm_train(dev: torch.device, build_dir: Path,
+                   peak_bw: float) -> dict:
+    """The LM training path on the card (see the module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import (init_params, make_train_step,
+                                    value_and_grad)
+    from repro_torch.models.convert import export_params, \
+        load_reference_params
+    from repro_torch.optim import adamw, cosine_warmup_schedule
+    res: dict = {"grad": lm_train_grad(dev, peak_bw)}
+
+    # (b) the slice: 8 steps of 4 x 4096 in 4 microbatches
+    cfg = dataclasses.replace(get_arch(LM_ARCH), attn_impl="flash")
+    check(cfg.remat, "llama3.2-1b trains with remat")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw(cosine_warmup_schedule(TRAIN_LR, TRAIN_STEPS // 10 + 1,
+                                       TRAIN_STEPS))
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, opt, TRAIN_MB)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, depth=2,
+                         device=dev)
+    per_step = cfg.n_layers * TRAIN_MB * 2     # forward + remat recompute
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times, k8 = [], [], []
+    batches = pipe.batches(TRAIN_STEPS + 1)
+    ops.reset_kernel_launches()
+    t_prev = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        n0 = ops.kernel_launches()["flash_attention"]
+        model, state, m = step(model, state, next(batches))
+        losses.append(float(m["loss"]))          # waits for the step
+        now = time.perf_counter()
+        times.append((now - t_prev) * 1e3)
+        t_prev = now
+        k8.append(ops.kernel_launches()["flash_attention"] - n0)
+    main_launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses), f"lm_train losses {losses}")
+    check(k8 == [per_step] * TRAIN_STEPS,
+          f"K8 launches per step {k8}, derived {per_step} ({cfg.n_layers} "
+          f"layers x {TRAIN_MB} microbatches x (forward + recompute))")
+    check(main_launches["flash_attention"] == per_step * TRAIN_STEPS,
+          f"K8 launches {main_launches}")
+    med = statistics.median(times[2:])
+    last = next(batches)                # one more step, traced
+    breakdown = device_breakdown(lambda: step(model, state, last))
+    del batches, last
+    res["slice"] = dict(
+        arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=TRAIN_MB, steps=TRAIN_STEPS, losses=losses,
+        ms_per_step=times, median_ms=med,
+        tok_s=TRAIN_BATCH * TRAIN_SEQ / (med / 1e3), peak_mem_bytes=peak,
+        k8_per_step=k8, k8_derived=per_step, launches=main_launches,
+        breakdown=breakdown)
+    emit("lm_train_slice", **res["slice"])
+    del state, step, opt
+
+    # (c) flash against blocked: one step each from the same weights
+    batch = next(iter(TokenPipeline(cfg, 1, TRAIN_SEQ, seed=100, depth=0,
+                                    device=dev).batches(1)))
+    snap = {k: p.detach().clone() for k, p in model.named_parameters()}
+    routes = {}
+    after = None
+    for route in ("flash", "blocked"):
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(snap[k])
+        norms = []
+        inner = adamw(TRAIN_LR)
+
+        def spy(grads, st, params=None, inner=inner, norms=norms):
+            norms.append(float(torch.sqrt(sum(
+                g.float().square().sum() for g in grads.values()))))
+            return inner.update(grads, st, params)
+        spy_opt = inner._replace(update=spy)
+        ops.reset_kernel_launches()
+        model, _, m = make_train_step(
+            dataclasses.replace(cfg, attn_impl=route), spy_opt, 1)(
+            model, spy_opt.init(dict(model.named_parameters())), batch)
+        routes[route] = dict(loss=float(m["loss"]), grad_norm=norms[0],
+                             k8=ops.kernel_launches()["flash_attention"])
+        if after is None:
+            after = {k: p.detach().clone()
+                     for k, p in model.named_parameters()}
+    check(routes["flash"]["k8"] == 2 * cfg.n_layers
+          and routes["blocked"]["k8"] == 0, f"(c) K8 launches {routes}")
+    worst, changed = 0.0, 0.0
+    for k, p in model.named_parameters():
+        diff = (after[k].float() - p.detach().float()).abs()
+        bound = 2 * TRAIN_LR + 2 * bf16_ulp(snap[k].float().abs()
+                                            + TRAIN_LR)
+        worst = max(worst, float((diff / bound).max()))
+        changed = max(changed, float((diff > 0).float().mean()))
+    dloss = abs(routes["flash"]["loss"] - routes["blocked"]["loss"])
+    dnorm = abs(routes["flash"]["grad_norm"] - routes["blocked"][
+        "grad_norm"]) / routes["blocked"]["grad_norm"]
+    check(dloss <= TRAIN_LOSS_TOL, f"(c) losses differ by {dloss}")
+    check(dnorm <= TRAIN_GNORM_REL, f"(c) gradient norms differ by {dnorm}")
+    check(worst <= 1.0, f"(c) a parameter moved past its bound: {worst}")
+    check(changed <= TRAIN_CHANGED_FRAC, f"(c) {changed} of a leaf changed")
+    res["vs_blocked"] = dict(routes=routes, loss_diff=dloss,
+                             grad_norm_rel_diff=dnorm,
+                             param_diff_over_bound=worst,
+                             max_changed_frac=changed)
+    del model, snap, after, batch
+    torch.cuda.empty_cache()
+
+    # (d) card against host: depth 2, 1 x 512, the same converted weights
+    small = dataclasses.replace(cfg, n_layers=TRAIN_HOST_LAYERS)
+    host = init_params(small, torch.Generator().manual_seed(0), "cpu")
+    card = init_params(small, torch.Generator(device=dev).manual_seed(0),
+                       dev)
+    load_reference_params(card, export_params(host))
+    hb = next(iter(TokenPipeline(small, 1, TRAIN_HOST_SEQ, seed=3, depth=0,
+                                 device="cpu").batches(1)))
+    ops.reset_kernel_launches()
+    c_loss, _, c_grads = value_and_grad(card, small, hb)
+    check(ops.kernel_launches()["flash_attention"] == 2 * TRAIN_HOST_LAYERS,
+          "(d) K8 launches")
+    t0 = time.perf_counter()
+    h_loss, _, h_grads = value_and_grad(host, small, hb)
+    host_s = time.perf_counter() - t0
+    rel = {k: float((c_grads[k].cpu().float() - g.float()).norm()
+                    / g.float().norm().clamp(min=1e-30))
+           for k, g in h_grads.items()}
+    dl = abs(float(c_loss) - float(h_loss))
+    check(dl <= HOST_LOSS_TOL, f"(d) card vs host loss {dl}")
+    worst_leaf = max(rel, key=rel.get)
+    check(rel[worst_leaf] <= HOST_GRAD_REL,
+          f"(d) gradient {worst_leaf} differs by {rel[worst_leaf]}")
+    res["vs_host"] = dict(loss_card=float(c_loss), loss_host=float(h_loss),
+                          loss_diff=dl, worst_leaf=worst_leaf,
+                          worst_rel_l2=rel[worst_leaf], leaves=len(rel),
+                          host_s=host_s)
+    del host, card, c_grads, h_grads
+
+    # (e) the CLI, twice as subprocesses: 10 steps with checkpoints, then
+    # 15 from the step-10 checkpoint
+    ckpt = build_dir / f"lm-ckpt-{os.getpid()}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    try:
+        for steps in (CLI_STEPS, CLI_RESUME_STEPS):
+            argv = [sys.executable, "-m", "repro_torch.launch.train",
+                    "--arch", CLI_ARCH, "--steps", str(steps), "--batch",
+                    "4", "--seq", "512", "--ckpt-dir", str(ckpt),
+                    "--ckpt-every", "5", "--attn-impl", "flash"]
+            t0 = time.perf_counter()
+            out = subprocess.run(argv, capture_output=True, text=True,
+                                 env=env, cwd=str(ROOT), timeout=600)
+            wall = time.perf_counter() - t0
+            check(out.returncode == 0, f"train CLI failed: {out.stderr[-2000:]}")
+            reading = json.loads(out.stdout.strip().splitlines()[-1])
+            ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                             if f.is_file())
+            runs.append(dict(argv=argv[2:], wall_s=wall,
+                             start_step=reading["start_step"],
+                             losses=reading["losses"],
+                             ms_per_step=reading["ms_per_step"],
+                             median_ms=reading["median_ms"],
+                             k8_launches=reading["k8_launches"],
+                             ckpt_bytes=ckpt_bytes,
+                             restored=[ln for ln in out.stdout.splitlines()
+                                       if ln.startswith("restored")]))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(runs[0]["start_step"] == 0 and len(runs[0]["losses"]) == CLI_STEPS
+          and runs[1]["start_step"] == CLI_STEPS
+          and len(runs[1]["losses"]) == CLI_RESUME_STEPS - CLI_STEPS,
+          f"CLI runs {[(r['start_step'], len(r['losses'])) for r in runs]}")
+    check(all(math.isfinite(x) for r in runs for x in r["losses"]),
+          "CLI losses")
+    check(all(r["k8_launches"] > 0 for r in runs), "CLI runs without K8")
+    res["cli"] = runs
+    emit("lm_train", **{k: v for k, v in res.items() if k != "slice"})
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -2254,6 +2606,9 @@ def main() -> int:
         shutil.rmtree(spill_dir, ignore_errors=True)
     phase_cli(ROOT / "build")
     serve_res = phase_serve(torch.device("cuda", 0))
+    from repro_torch.core.perfmodel import PLATFORMS
+    train_res = phase_lm_train(torch.device("cuda", 0), ROOT / "build",
+                               PLATFORMS[platform].mem_bw_gbps * 1e9)
 
     launches = dict(train["launches"])
     launches["segment_sum"] = seg_launches["segment_sum"]
@@ -2262,7 +2617,13 @@ def main() -> int:
     # baseline), so the train run's count of it stands
     launches["cache_combine_pipelined"] = \
         shard_launches["cache_combine_pipelined"]
-    launches["flash_attention"] = serve_res["k8_launches"]
+    # K8's paths: the serve phase's prefill and the lm_train slice
+    k8_paths = dict(serve=serve_res["k8_launches"],
+                    lm_train=train_res["slice"]["launches"]["flash_attention"])
+    launches["flash_attention"] = sum(k8_paths.values())
+    kern["flash_attention"].update(launches_by_path=k8_paths, **{
+        key: train_res["grad"][key] for key in train_res["grad"]
+        if key.startswith("train_")})
     kernels = []
     for name in ops.KERNELS:
         k = kern[name]
@@ -2277,7 +2638,9 @@ def main() -> int:
             **{key: k[key] for key in ("tflops", "bound_fraction",
                                        "bf16_ms", "bf16_bound_ms",
                                        "cache_less", "peer_gather")
-               if key in k}))
+               if key in k},
+            **{key: k[key] for key in k if key.startswith("train_")
+               or key == "launches_by_path"}))
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@ no fallback from a failed build or launch to the plain version.
 
 Each launch adds one to its kernel's counter (``kernel_launches()``), so a
 run can show that its main path went through the kernels.  The two layer
-kernels sit inside ``torch.autograd.Function``s whose backwards are the
-analytic VJPs of the reference (``repro/kernels/ops.py:343-357`` and
-``:458-480``), written as torch ops.
+kernels and flash attention sit inside ``torch.autograd.Function``s whose
+backwards are the reference's VJPs (``repro/kernels/ops.py:343-357``,
+``:414-445`` and ``:458-480``), written as torch ops: the reference has no
+Pallas backward either.
 """
 from __future__ import annotations
 
@@ -460,18 +461,8 @@ FLASH_HEAD_DIMS = (16, 32, 64, 128)   # K8's template instances
 FLASH_MAX_TILE = 512                  # the reference's q_block / kv_tile cap
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_block: int = 512, pos0: int = 0) -> torch.Tensor:
-    """Causal grouped-query attention (forward).
-
-    q: [B, S, Hkv, G, D]; k/v: [B, S, Hkv, D] -> [B, S, Hkv, G, D].  As in
-    the reference's kernel call, S must be a multiple of ``min(q_block, S)``
-    and of ``min(512, S)``: any S up to 512, a multiple of 512 above.  A
-    CUDA tensor launches K8 (f32 or bf16, D in ``FLASH_HEAD_DIMS``, every
-    base pointer 16-byte aligned) or raises; a CPU tensor runs the plain
-    version.  No gradient yet: a CUDA input that requires one raises
-    rather than dropping it.
-    """
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_block: int, pos0: int) -> torch.Tensor:
     if q.dim() != 5 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[:3] != k.shape[:3] or q.shape[4] != k.shape[3]:
         raise ValueError(f"flash attention: q [B,S,Hkv,G,D] and k/v "
@@ -484,10 +475,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"of its q block {qb} and kv tile {kvt}")
     if _on_cpu(q):
         return ref.flash_attention(q, k, v, qb, pos0)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention has no backward on the card yet (ROADMAP: LM "
-            "training, K8's gradient)")
     suffix = _SUFFIX.get(q.dtype)
     if suffix is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention: unsupported dtypes {q.dtype}, "
@@ -501,3 +488,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hkv, g, d,
             int(pos0))
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_block, pos0):
+        ctx.save_for_backward(q, k, v)
+        ctx.q_block, ctx.pos0 = q_block, pos0
+        return _flash_forward(q, k, v, q_block, pos0)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        d_q, d_k, d_v = ref.flash_attention_vjp(q, k, v, g, ctx.q_block,
+                                                ctx.pos0)
+        return d_q, d_k, d_v, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_block: int = 512, pos0: int = 0) -> torch.Tensor:
+    """Causal grouped-query attention, differentiable.
+
+    q: [B, S, Hkv, G, D]; k/v: [B, S, Hkv, D] -> [B, S, Hkv, G, D].  As in
+    the reference's kernel call, S must be a multiple of ``min(q_block, S)``
+    and of ``min(512, S)``: any S up to 512, a multiple of 512 above.  The
+    forward launches K8 on a CUDA tensor (f32 or bf16, D in
+    ``FLASH_HEAD_DIMS``, every base pointer 16-byte aligned) or raises; a
+    CPU tensor runs the plain version.  The gradient is the reference's
+    recompute VJP (``ref.flash_attention_vjp``) on the inputs' device: it
+    saves q, k and v, not the output.
+    """
+    return _FlashAttention.apply(q, k, v, int(q_block), int(pos0))

@@ -21,6 +21,11 @@ kernels in ``csrc/`` compute, written as ordinary torch ops: the wrappers in
   ``(self_scale ⊙ x_self) @ w_self + agg @ w_agg + bias`` in f32.
 * ``flash_attention`` — causal grouped-query attention (K8): scores, mask,
   softmax and product in f32, one rounding to the input dtype.
+* ``flash_attention_vjp`` — K8's gradient, the reference's recompute VJP
+  (``repro/kernels/ops.py:414-445``): probabilities recomputed in f32 from
+  q and k, then d_v, d_p, the row term, d_s, d_q and d_k in f32, each
+  result rounded once.  It has no kernel on the card, as the reference's
+  has no Pallas backward; both devices run it.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import torch
 __all__ = ["assemble_features", "expand_rows", "cache_combine_legacy",
            "cache_update",
            "segment_weighted_sum_regular", "fused_gnn_update",
-           "flash_attention"]
+           "flash_attention", "flash_attention_vjp"]
 
 
 def assemble_features(cache: Optional[torch.Tensor], miss: torch.Tensor,
@@ -157,3 +162,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out[:, start:stop] = torch.einsum("bhgqk,bkhd->bqhgd", p,
                                           v32[:, :stop]).to(q.dtype)
     return out
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, q_block: int = 512, pos0: int = 0):
+    """The cotangents ``(d_q, d_k, d_v)`` of ``flash_attention`` at
+    ``(q, k, v)`` for the output cotangent ``g`` (q's shape).
+
+    The reference's ``_flash_vjp_bwd`` over the whole sequence, tiled over
+    q blocks of ``q_block`` rows so that the f32 probabilities, ``d_p`` and
+    ``d_s`` stay ``[B, Hkv, G, q_block, <= S]``: a block recomputes its rows'
+    probabilities over the keys up to its last row (the rest are exactly 0)
+    and adds its share of d_k and d_v into f32 sums.  d_q is per row, as in
+    the reference; d_k and d_v sum the blocks' shares in block order, so
+    they differ from the reference's one product in the order of an f32
+    sum.  The softmax scale multiplies d_q per block and the d_k sum once,
+    as the reference scales its products.  Reads only q, k, v and g: the
+    forward's output is not needed.
+    """
+    b, s, hkv, gq, d = q.shape
+    qb = min(q_block, s)
+    scale = 1.0 / (d ** 0.5)
+    k32, v32 = k.float(), v.float()
+    pos = pos0 + torch.arange(s, device=q.device)
+    d_q = torch.empty_like(q)
+    d_k = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    d_v = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for start in range(0, s, qb):
+        stop = min(start + qb, s)
+        qi, gi = q[:, start:stop].float(), g[:, start:stop].float()
+        ki, vi = k32[:, :stop], v32[:, :stop]
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qi, ki) * scale
+        future = pos[None, :stop] > pos[start:stop, None]    # masked out
+        p = torch.softmax(scores.masked_fill_(future, -1e30), dim=-1)
+        del scores
+        d_v[:, :stop] += torch.einsum("bhgqk,bqhgd->bkhd", p, gi)
+        d_p = torch.einsum("bqhgd,bkhd->bhgqk", gi, vi)
+        row = torch.sum(d_p * p, dim=-1, keepdim=True)
+        d_s = p * (d_p - row)
+        del p, d_p
+        d_q[:, start:stop] = (torch.einsum("bhgqk,bkhd->bqhgd", d_s, ki)
+                              * scale).to(q.dtype)
+        d_k[:, :stop] += torch.einsum("bhgqk,bqhgd->bkhd", d_s, qi)
+    return d_q, (d_k * scale).to(k.dtype), d_v.to(v.dtype)

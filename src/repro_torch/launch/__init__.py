@@ -1,2 +1,2 @@
 """Launchers of the port (``repro/launch`` and ``examples/``): the serving
-CLI and the GNN training CLI."""
+CLI, the LM training CLI and the GNN training CLI."""

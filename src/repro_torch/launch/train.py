@@ -1,0 +1,132 @@
+"""LM training CLI (port of ``repro/launch/train.py``):
+``python -m repro_torch.launch.train --arch smollm-135m --reduced --steps 50
+[--device cpu]``.
+
+The paper's system pieces end to end on the LM substrate: the two-stage
+prefetching input pipeline (``data.TokenPipeline``), AdamW under the cosine
+warm-up schedule, microbatched gradient accumulation, and checkpoint /
+restart through ``checkpoint.CheckpointManager(keep=2)`` (parameters,
+optimizer state and its step).  Runs on ``cuda:0`` unless ``--device`` says
+otherwise; weights are random from ``--seed`` (a ``torch.Generator``).  One
+card has no mesh, so ``--model-parallel`` above 1 raises.
+
+A resumed run reads the batches of the steps it resumes at (step ``i``
+from ``seed + i``), so its losses continue an uninterrupted run's bit for
+bit; the reference's CLI replays its stream from step 0 instead.
+``main`` returns the readings (losses, ms per step, tok/s) and prints them
+last as one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_arch
+from repro_torch.data import TokenPipeline
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import init_params, make_train_step, param_count
+from repro_torch.optim import adamw, cosine_warmup_schedule
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced smoke config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="TFP window; 0 disables the two-stage prefetch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attn-impl", choices=("blocked", "flash"),
+                    default=None,
+                    help="attention route (default: the config's); flash "
+                    "launches K8 on the card")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda:0)")
+    args = ap.parse_args(argv)
+
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 needs a device mesh, which is not ported "
+            "yet (ROADMAP: LM stack, the mesh route)")
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch, reduced=args.reduced)
+    if args.attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    print(f"arch={cfg.name} device={device} attn_impl={cfg.attn_impl}")
+
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), device)
+    named = dict(params.named_parameters())
+    opt = adamw(cosine_warmup_schedule(args.lr, args.steps // 10 + 1,
+                                       args.steps))
+    opt_state = opt.init(named)
+    print(f"params: {param_count(params)/1e6:.1f}M")
+    step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
+
+    start_step = 0
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep=2)
+        restored = mgr.restore_latest({"params": named, "opt": opt_state})
+        if restored is not None:
+            start_step, tree = restored
+            with torch.no_grad():
+                for k, p in named.items():
+                    p.copy_(tree["params"][k])
+            opt_state = tree["opt"]
+            print(f"restored checkpoint at step {start_step}")
+
+    pipe = TokenPipeline(cfg, args.batch, args.seq, seed=args.seed,
+                         depth=args.prefetch_depth, device=device)
+    losses: List[float] = []
+    times: List[float] = []
+    launches0 = ops.kernel_launches()["flash_attention"]
+    loss = float("nan")
+    t_prev = time.perf_counter()
+    for step, batch in enumerate(pipe.batches(args.steps - start_step,
+                                              start=start_step),
+                                 start=start_step):
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])       # waits for the step
+        now = time.perf_counter()
+        dt = now - t_prev
+        t_prev = now
+        losses.append(loss)
+        times.append(dt)
+        if step % 5 == 0 or step == args.steps - 1:
+            print(f"step {step:5d}  loss {loss:.4f}  {dt*1e3:7.1f} ms/step  "
+                  f"{args.batch * args.seq / dt:9.0f} tok/s")
+        if mgr and (step + 1) % args.ckpt_every == 0:
+            mgr.save(step + 1, {"params": named, "opt": opt_state})
+    if mgr:
+        mgr.save(args.steps, {"params": named, "opt": opt_state})
+        mgr.finalize()
+    med = float(np.median(times[2:])) if len(times) > 3 else float("nan")
+    print(f"done: median {med*1e3:.1f} ms/step, final loss {loss:.4f}")
+    res: Dict[str, object] = dict(
+        arch=cfg.name, device=str(device), start_step=start_step,
+        steps=args.steps, losses=losses, ms_per_step=[t * 1e3 for t in times],
+        median_ms=med * 1e3, tok_s=args.batch * args.seq / med,
+        k8_launches=ops.kernel_launches()["flash_attention"] - launches0)
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

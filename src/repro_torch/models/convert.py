@@ -4,7 +4,10 @@ The reference keeps parameters as a nested dict with every layer weight
 stacked on a leading ``[L, ...]`` axis (``embed``, ``final_norm``,
 ``lm_head``, ``layers: {ln1, wq, ...}``).  ``load_reference_params`` copies
 such a tree of numpy arrays into an ``LM`` bit for bit; ``export_params``
-gives it back, so a round trip is the identity.
+gives it back, so a round trip is the identity.  ``export_named`` lays any
+``{parameter name: tensor}`` dict (gradients, optimizer moments) out in
+the same tree, so the port's training state compares leaf by leaf with the
+reference's.
 
 bf16 leaves may arrive as float32 (every bf16 value is exact in f32) or as
 uint16 bit patterns, since numpy has no bf16 without ``ml_dtypes`` (which
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_reference_params", "export_params"]
+__all__ = ["load_reference_params", "export_params", "export_named"]
 
 _TOP = ("embed", "final_norm", "lm_head")
 
@@ -79,17 +82,28 @@ def load_reference_params(model: nn.Module,
     return model
 
 
-def export_params(model: nn.Module) -> Dict[str, object]:
-    """The reference's tree of ``model``'s weights as numpy float32 (bf16
-    leaves widened exactly), layers stacked ``[L, ...]``."""
+def export_named(model: nn.Module,
+                 tensors: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """The reference's tree of a dict keyed by ``model``'s parameter names
+    (``embed``, ``layers.<i>.<leaf>``, ...) as numpy float32 copies (bf16
+    widened exactly; a later in-place update does not reach them), layer
+    leaves stacked ``[L, ...]``."""
+    def host(name: str) -> np.ndarray:
+        return tensors[name].detach().to("cpu", torch.float32,
+                                         copy=True).numpy()
+
     layers: Dict[str, np.ndarray] = {}
     tree: Dict[str, object] = {"layers": layers}
     for path in _names(model):
         if path[0] == "layers":
-            layers[path[1]] = np.stack([
-                getattr(layer, path[1]).detach().float().cpu().numpy()
-                for layer in model.layers])
+            layers[path[1]] = np.stack([host(f"layers.{i}.{path[1]}")
+                                        for i in range(len(model.layers))])
         else:
-            tree[path[0]] = getattr(model, path[0]).detach().float().cpu(
-            ).numpy()
+            tree[path[0]] = host(path[0])
     return tree
+
+
+def export_params(model: nn.Module) -> Dict[str, object]:
+    """The reference's tree of ``model``'s weights as numpy float32 (bf16
+    leaves widened exactly), layers stacked ``[L, ...]``."""
+    return export_named(model, dict(model.named_parameters()))

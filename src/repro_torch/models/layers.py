@@ -10,6 +10,12 @@ Attention over a full sequence runs one of two routes, as in the reference:
   kernel K8 (``kernels.ops.flash_attention``), f32 inside and one rounding
   of the output.
 
+Both routes train.  Under autograd each q block of the blocked loop is
+rematerialized (``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` on its scan body), so a backward holds one block's f32
+scores at a time, not ``n_blocks`` of them; K8's gradient is the
+reference's recompute VJP (``kernels.ref.flash_attention_vjp``).
+
 Decode runs against a KV cache with an explicit per-slot position array.
 Unlike the reference's pure functions, ``decode_attention`` and
 ``prefill_into_cache`` write the cache in place (a full-width cache is
@@ -25,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 
@@ -85,6 +92,8 @@ def _block_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask &= kv_pos[None, :] >= 0                        # slot written
     if window > 0:
         mask &= (q_pos[:, None] - kv_pos[None, :]) < window
+    # in place on the scaled product's output, which autograd does not
+    # save (the product saves only its scalar); softmax saves its result
     p = torch.softmax(scores.masked_fill_(~mask, _NEG), dim=-1)
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
 
@@ -96,7 +105,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: [B, S, Hq, D]; k/v: [B, S, Hkv, D] -> [B, S, Hq, D].
     ``impl="flash"`` with ``window == 0`` and ``S > 1`` launches K8 on a
-    card (its plain version on the host); otherwise the blocked loop.
+    card (its plain version on the host); otherwise the blocked loop, each
+    block recomputed in the backward when autograd records.
     """
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
@@ -120,7 +130,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lo = min(max(start + qb - kv_len, 0), s - kv_len)
             ki, vi = k[:, lo:lo + kv_len], v[:, lo:lo + kv_len]
             kv_pos = pos0 + lo + torch.arange(kv_len, device=q.device)
-        outs.append(_block_attend(qi, ki, vi, q_pos, kv_pos, window))
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(_block_attend, qi, ki, vi, q_pos, kv_pos,
+                                   window, use_reentrant=False,
+                                   preserve_rng_state=False))
+        else:
+            outs.append(_block_attend(qi, ki, vi, q_pos, kv_pos, window))
     return torch.cat(outs, dim=1).reshape(b, s, hq, dh)
 
 

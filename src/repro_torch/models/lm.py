@@ -1,37 +1,45 @@
 """The LM substrate (port of ``repro/models/lm.py``): one ``ModelConfig``
-covers the ten architectures, and the serving path of the dense kind runs.
+covers the ten architectures, and the dense kind trains and serves.
 
 Ported: the config (fields, defaults, derived sizes), the parameter
 counts, and for ``kind="dense"`` with full attention (``window=0``) and no
-frontend stub: ``init_params``, ``forward`` (training / prefill logits
-with the per-layer K/V), ``make_prefill_step``, ``init_decode_cache`` and
-``make_serve_step`` (one-token decode against the stacked cache).  Every
-other kind, window or frontend raises ``NotImplementedError`` naming its
-ROADMAP item; training (``loss_fn``, ``make_train_step``) is the next LM
-slice.
+frontend stub: ``init_params``, ``forward`` (the training forward: logits,
+with the per-layer K/V when asked), ``loss_fn``, ``value_and_grad``,
+``make_train_step`` (microbatched gradient accumulation),
+``make_prefill_step``, ``init_decode_cache`` and ``make_serve_step``
+(one-token decode against the stacked cache).  Every other kind, window or
+frontend raises ``NotImplementedError`` naming its ROADMAP item.
 
 Parameters live in an ``nn.Module`` whose names are the reference's
 (``embed``, ``final_norm``, ``lm_head``, and per layer ``ln1``, ``wq``,
 ``wk``, ``wv``, ``wo``, ``ln2``, ``w1``, ``w3``, ``w2``), with weights
 ``[in, out]`` so products stay ``x @ W``.  The reference stacks layers on
 a leading axis and scans; here ``layers`` is a ``ModuleList`` and a loop
-(``convert.py`` maps between the two).  Everything runs under
-``torch.inference_mode()``.
+(``convert.py`` maps between the two).  The parameters do not require
+gradients; ``value_and_grad`` turns that on for the one backward it
+takes, so serving and plain forwards record nothing.  Training works on a
+``{name: tensor}`` dict with ``named_parameters()``'s names (``embed``,
+``final_norm``, ``lm_head``, ``layers.<i>.<leaf>``); the prefill and decode
+steps run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..optim.optimizers import apply_updates
 from .layers import (KVCache, attention, decode_attention, gelu_mlp,
                      init_linear, init_rms, rms_norm, rope, swiglu)
 
-__all__ = ["ModelConfig", "LM", "init_params", "forward",
-           "make_prefill_step", "make_serve_step", "init_decode_cache",
-           "param_count", "active_param_count", "model_flops_per_token"]
+__all__ = ["ModelConfig", "LM", "init_params", "forward", "loss_fn",
+           "value_and_grad", "make_train_step", "make_prefill_step",
+           "make_serve_step", "init_decode_cache", "param_count",
+           "active_param_count", "model_flops_per_token"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -234,17 +242,29 @@ def _ffn_apply(cfg: ModelConfig, lp: DenseBlock, x: torch.Tensor):
 # ==================================================================== forward
 
 
+def _layer(cfg: ModelConfig, lp: DenseBlock, x: torch.Tensor):
+    x, kv = _attn_apply(cfg, lp, x, 0)
+    return _ffn_apply(cfg, lp, x), kv
+
+
 def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
             return_cache: bool):
     """Embedding and every layer: the last hidden state, and the stacked
-    post-RoPE ``(k, v)`` ``[L, B, S, Hkv, D]`` when asked."""
+    post-RoPE ``(k, v)`` ``[L, B, S, Hkv, D]`` when asked.  With
+    ``cfg.remat`` and autograd recording, each layer is rematerialized in
+    the backward (as the reference's ``jax.checkpoint`` on its scan body):
+    only the layer inputs stay alive between the passes."""
     _check_ported(cfg)
     tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
     x = params.embed[tokens.long()]
+    remat = cfg.remat and not return_cache and torch.is_grad_enabled()
     ks, vs = [], []
     for lp in params.layers:
-        x, (k, v) = _attn_apply(cfg, lp, x, 0)
-        x = _ffn_apply(cfg, lp, x)
+        if remat:
+            x = checkpoint(lambda h, lp=lp: _layer(cfg, lp, h)[0], x,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, (k, v) = _layer(cfg, lp, x)
         if return_cache:
             ks.append(k)
             vs.append(v)
@@ -253,16 +273,33 @@ def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
     return x, caches
 
 
-@torch.inference_mode()
+class _GradCast(torch.autograd.Function):
+    """Identity whose cotangent is cast to ``dtype``: the reference's
+    ``_grad_cast`` (``repro/models/lm.py:283-303``), which keeps the
+    backward stream through the layers in the forward's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
 def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
             return_cache: bool = False):
     """Training / prefill forward.  Returns (logits, aux, caches|None):
     logits ``[B, S, vocab_padded]``, aux 0 (no MoE), caches
-    ``{"attn_kv": (k, v)}`` stacked over layers."""
+    ``{"attn_kv": (k, v)}`` stacked over layers.  Differentiable: it
+    records for autograd where the caller does."""
     x, caches = _hidden(params, cfg, batch, return_cache)
+    x = _GradCast.apply(x, cfg.torch_dtype)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = x @ params.lm_head
-    return logits, torch.zeros((), dtype=torch.float32), caches
+    return logits, torch.zeros((), dtype=torch.float32,
+                               device=logits.device), caches
 
 
 def _mask_padded(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -271,6 +308,121 @@ def _mask_padded(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     logits = logits.clone()
     logits[..., cfg.vocab:] = -1e30
     return logits
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy in f32 over the positions whose label is
+    ``>= 0`` (``repro/models/lm.py:375-394``): ``(loss, {"nll", "aux",
+    "tokens"})``, with ``loss = nll + 0.01 * aux``."""
+    logits, aux, _ = forward(params, cfg, batch)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logits = _mask_padded(logits, cfg).float()
+    shift_logits = logits[:, :-1]
+    shift_labels = labels[:, 1:]
+    logz = torch.logsumexp(shift_logits, dim=-1)
+    # a negative label indexes from the end, as take_along_axis does; its
+    # position is masked out of the sum
+    idx = torch.where(shift_labels < 0, shift_labels + logits.shape[-1],
+                      shift_labels)
+    gold = torch.gather(shift_logits, -1, idx[..., None])[..., 0]
+    mask = (shift_labels >= 0).float()
+    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = nll + 0.01 * aux
+    return loss, {"nll": nll, "aux": aux, "tokens": mask.sum()}
+
+
+@contextlib.contextmanager
+def _recording(leaves) -> Iterator[None]:
+    """Parameters require gradients inside the block only."""
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            yield
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+def value_and_grad(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                              Dict[str, torch.Tensor]]:
+    """``loss_fn`` and its gradient: ``(loss, metrics, grads)``, grads a
+    ``{name: tensor}`` dict in each parameter's dtype, under
+    ``named_parameters()``'s names."""
+    named = dict(params.named_parameters())
+    with _recording(named.values()):
+        loss, metrics = loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, list(named.values()))
+    return (loss.detach(), {k: m.detach() for k, m in metrics.items()},
+            dict(zip(named, grads)))
+
+
+def _split(batch: Dict[str, Any], n: int) -> list:
+    """The batch cut on its leading axis into ``n`` equal microbatches."""
+    parts: list = [{} for _ in range(n)]
+    for key, a in batch.items():
+        t = torch.as_tensor(a)
+        if t.shape[0] % n:
+            raise ValueError(f"batch of {t.shape[0]} rows does not split "
+                             f"into {n} microbatches")
+        for i, piece in enumerate(t.split(t.shape[0] // n)):
+            parts[i][key] = piece
+    return parts
+
+
+def make_train_step(cfg: ModelConfig, optimizer,
+                    microbatches: int = 1) -> Callable:
+    """The train step (``repro/models/lm.py:397-440``):
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
+
+    ``params`` is the ``LM``; its tensors are updated in place under
+    ``torch.no_grad()`` and the same module is returned.  The optimizer
+    works on ``{name: tensor}`` dicts under ``named_parameters()``'s names.
+    ``metrics`` holds ``loss``, ``nll``, ``aux`` and ``tokens`` as 0-d f32
+    tensors on the parameters' device.  ``microbatches > 1`` accumulates:
+    the batch is cut on its leading axis, each part's gradients are added
+    into f32 sums in order and divided by ``n``, and the metrics are the
+    means over the parts; only one part's activations are alive at a time.
+    ``apply_updates`` rounds ``p + u`` to each parameter's dtype.
+    """
+    _check_ported(cfg)
+    n = int(microbatches)
+
+    def apply(params: LM, opt_state, grads, metrics):
+        named = dict(params.named_parameters())
+        updates, opt_state = optimizer.update(grads, opt_state, named)
+        del grads
+        new = apply_updates(named, updates)
+        with torch.no_grad():
+            for k, p in named.items():
+                p.copy_(new[k])
+        return params, opt_state, metrics
+
+    def single(params: LM, opt_state, batch):
+        loss, metrics, grads = value_and_grad(params, cfg, batch)
+        return apply(params, opt_state, grads, dict(metrics, loss=loss))
+
+    if n <= 1:
+        return single
+
+    def accumulated(params: LM, opt_state, batch):
+        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for k, p in params.named_parameters()}
+        ms = []
+        for one in _split(batch, n):
+            loss, metrics, grads = value_and_grad(params, cfg, one)
+            for k, g in grads.items():
+                acc[k] += g.float()
+            del grads
+            ms.append(dict(metrics, loss=loss))
+        for a in acc.values():
+            a.div_(n)
+        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        return apply(params, opt_state, acc, metrics)
+
+    return accumulated
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -552,17 +552,130 @@ def test_flash_attention_refuses_misaligned_bf16(cuda, offset, operand):
 
 
 def test_flash_attention_refuses_gradient_and_bad_inputs(cuda):
+    """A CUDA input that needs a gradient goes through K8 (one launch) and
+    gets the reference's recompute VJP: bit-equal to the plain backward on
+    the same inputs, which reads q, k, v and the cotangent only.  Bad
+    shapes and dtypes still raise."""
     q = torch.randn(1, 64, 1, 2, 16, device=cuda, requires_grad=True)
-    k = torch.randn(1, 64, 1, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="LM training"):
-        ops.flash_attention(q, k, k)
-    with torch.no_grad():                      # nothing to drop
-        ops.flash_attention(q, k, k)
+    k = torch.randn(1, 64, 1, 16, device=cuda, requires_grad=True)
+    v = torch.randn(1, 64, 1, 16, device=cuda, requires_grad=True)
+    g = torch.randn(1, 64, 1, 2, 16, device=cuda)
+    n0 = ops.kernel_launches()["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    assert ops.kernel_launches()["flash_attention"] == n0 + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = ref.flash_attention_vjp(q.detach(), k.detach(), v.detach(), g)
+    for a, b in zip(got, want):
+        assert _bits(a).equal(_bits(b))
+    with torch.no_grad():                      # nothing recorded
+        assert not ops.flash_attention(q, k, v).requires_grad
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(torch.zeros(1, 8, 1, 1, 24, device=cuda),
                             *[torch.zeros(1, 8, 1, 24, device=cuda)] * 2)
     with pytest.raises(TypeError, match="dtypes"):
-        ops.flash_attention(q.detach().half(), k.half(), k.half())
+        ops.flash_attention(q.detach().half(), k.detach().half(),
+                            v.detach().half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pos0", [((2, 512, 2, 3, 64), 0),
+                                        ((1, 1024, 2, 4, 32), 5),
+                                        ((1, 4096, 8, 4, 64), 0)])
+def test_flash_attention_grad_bit_equal_to_plain_route(cuda, shape, pos0,
+                                                       dtype):
+    """K8's gradient on the card at the training shape (llama3.2-1b's 8 KV
+    heads of 4, D 64, 4,096 tokens) and two others: autograd through K8
+    against the plain forward and backward on the same inputs and
+    cotangent, bit for bit; the forward within K8's tolerance."""
+    gen = torch.Generator().manual_seed(sum(shape) + pos0)
+    b, s, hkv, g, d = shape
+    q = _randn(gen, *shape, device=cuda).to(dtype).requires_grad_()
+    k = _randn(gen, b, s, hkv, d, device=cuda).to(dtype).requires_grad_()
+    v = _randn(gen, b, s, hkv, d, device=cuda).to(dtype).requires_grad_()
+    cot = _randn(gen, *shape, device=cuda).to(dtype)
+    out = ops.flash_attention(q, k, v, 512, pos0)
+    got = torch.autograd.grad(out, (q, k, v), cot)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    want = ref.flash_attention_vjp(qd, kd, vd, cot, 512, pos0)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and _bits(a).equal(_bits(w))
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.detach().float(), ref.flash_attention(
+        qd, kd, vd, 512, pos0).float(), rtol=tol, atol=tol)
+
+
+def _lm_train_pair(cfg, batch, make_opt, microbatches, steps, device):
+    """``steps`` train steps of one model from the same weights on
+    ``device`` and on the host: losses and final params of both."""
+    from repro_torch.models import make_train_step
+    from repro_torch.models.convert import export_params, \
+        load_reference_params
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = init_params(cfg, torch.Generator().manual_seed(0), device)
+    load_reference_params(card, export_params(host))
+    out = {}
+    for model in (card, host):
+        opt = make_opt()
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(cfg, opt, microbatches)
+        losses = []
+        for _ in range(steps):
+            model, state, m = step(model, state, batch)
+            losses.append(float(m["loss"]))
+        out[model.embed.device.type] = (losses, export_params(model))
+    return out["cuda"], out["cpu"]
+
+
+@pytest.mark.parametrize("impl", ["blocked", "flash"])
+def test_reduced_lm_train_step_on_card_matches_host(cuda, impl):
+    """Three AdamW steps of the reduced llama (f32, remat on) on the card
+    and on the host from the same weights and tokens: losses within 1e-4;
+    parameters within 2 lr per step (AdamW moves a weight by about lr
+    whatever its gradient's size, so a near-eps gradient whose last bits
+    differ moves differently) and on average within 1e-3 lr.  The flash
+    route launches K8 twice per layer per step (forward and recompute)."""
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True),
+                              attn_impl=impl, remat=True)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 64)
+                                             ).astype(np.int32)
+    ops.reset_kernel_launches()
+    (cl, cp), (hl, hp) = _lm_train_pair(cfg, {"tokens": toks,
+                                              "labels": toks},
+                                        lambda: adamw(1e-3), 1, 3, cuda)
+    assert ops.kernel_launches()["flash_attention"] == (
+        3 * 2 * cfg.n_layers if impl == "flash" else 0)
+    np.testing.assert_allclose(cl, hl, rtol=0, atol=1e-4)
+    for name in ("embed", "lm_head", "final_norm"):
+        d = np.abs(cp[name] - hp[name])
+        assert d.max() <= 2 * 1e-3 * 3 and d.mean() <= 1e-6, name
+    for name, a in cp["layers"].items():
+        d = np.abs(a - hp["layers"][name])
+        assert d.max() <= 2 * 1e-3 * 3 and d.mean() <= 1e-6, name
+
+
+def test_microbatched_step_equals_single_on_card(cuda):
+    """The reference's invariant (microbatched = single-shot under SGD,
+    rtol 1e-5, atol 1e-6) on the card in f32, through K8."""
+    from repro_torch.models import make_train_step
+    from repro_torch.optim import sgd
+    cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True),
+                              attn_impl="flash")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (8, 32)
+                                             ).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    res = []
+    for n in (1, 4):
+        model = init_params(cfg, torch.Generator(device=cuda).manual_seed(1),
+                            cuda)
+        opt = sgd(1e-2)
+        model, _, m = make_train_step(cfg, opt, n)(
+            model, opt.init(dict(model.named_parameters())), batch)
+        res.append((float(m["loss"]), [p.detach().cpu()
+                                       for p in model.parameters()]))
+    np.testing.assert_allclose(res[0][0], res[1][0], rtol=1e-5)
+    for a, b in zip(res[0][1], res[1][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -403,19 +403,44 @@ def _pair(datasets, **overrides):
     dict(n_accel=4, shard_placement="hash", total_batch=256),
     dict(n_accel=4, shard_placement="degree", total_batch=256),
     dict(n_accel=2, hybrid=True, total_batch=256),
-    dict(n_accel=2, cache_refresh=True, cache_drift_threshold=0.0)],
+    dict(n_accel=2, cache_refresh=True, cache_drift_threshold=0.0,
+         tfp_depth=0)],
     ids=["n2_hash", "n2_degree", "n4_hash", "n4_degree", "n2_hybrid",
          "n2_refresh"])
 def test_sharded_trainer_parity(datasets, overrides):
     """Shares, cache versions and feature traffic equal to the reference's,
     losses within 1e-4 (the hybrid case re-prices through the sharded
-    Eq. 7/8 terms)."""
-    _, p, _ = _pair(datasets, cache_sharding="sharded", **overrides)
+    Eq. 7/8 terms).  The refresh case runs its stages in sequence: each
+    boundary then sees one batch's loads and commits, in both packages
+    (versions 2, 4, 6, 8)."""
+    _, p, ph = _pair(datasets, cache_sharding="sharded", **overrides)
     assert isinstance(p.cache, tg.ShardedFeatureCache)
     ft = p.feature_traffic()
     assert ft["peer_rows"] > 0 and ft["ici_bytes"] > 0
     if overrides.get("cache_refresh"):
-        assert p.cache.version > 0
+        assert [m.cache_version for m in ph] == [2, 4, 6, 8]
+
+
+def test_sharded_trainer_refresh_parity_pipelined(datasets):
+    """Refresh at tfp_depth=2: what a boundary refreshes depends on how far
+    the load stage has run ahead of training, in either package, so only
+    what timing cannot move is compared: the losses (within 1e-4), the
+    assignments, and a committed refresh."""
+    cfg = dict(CFG, n_accel=2, cache_sharding="sharded", cache_refresh=True,
+               cache_drift_threshold=0.0)
+    assert cfg["tfp_depth"] == 2
+    r = rc.HybridGNNTrainer(datasets[0], rg.GNNConfig(**GKW),
+                            rc.HybridConfig(**cfg))
+    p = tc.HybridGNNTrainer(datasets[1], tg.GNNConfig(**GKW),
+                            tc.HybridConfig(**cfg), device="cpu")
+    p.set_params({k: np.asarray(v) for k, v in r.params.items()})
+    rh, ph = r.train(ITERS), p.train(ITERS)
+    r.close()
+    p.close()
+    assert [m.assignment for m in rh] == [m.assignment for m in ph]
+    np.testing.assert_allclose([m.loss for m in ph], [m.loss for m in rh],
+                               rtol=0, atol=1e-4)
+    assert r.cache.version > 0 and p.cache.version > 0
 
 
 def test_shipped_byte_ratio_at_4_accel_equals_reference(datasets):
