@@ -178,6 +178,31 @@ Phases, each printing one JSON line:
                for 10 steps with a checkpoint every 5, then again for 15,
                restoring step 10: wall time, losses, checkpoint bytes (the
                directory under build/ removed after)
+  lm_moe       MoE blocks, sliding-window attention and the stub frontends
+               at published widths (bf16, random weights from a seed, the
+               depth cut): (a) mixtral-8x22b at depth 4, 4 x 4096 prefill
+               into a ring cache of min(4096 + 32, window 4096) slots, 32
+               greedy decode steps (the first wraps the ring): prefill ms,
+               decode ms per token, tok/s, peak memory, the share of
+               assignments dropped at capacity factor 1.25; then prefill +
+               decode again at capacity factor E / top_k (nothing drops)
+               against one forward over prompt and decoded tokens, at the
+               positions routed alike in every layer; (b) the blocked
+               route's sliced window + q_block view at [1, 8192, 8, 6, 128]
+               against one whole-sequence block with the window mask; (c)
+               mixtral at depth 1, TokenPipeline 2 x 8192 in 2 microbatches,
+               remat, SGD with momentum, 4 steps: finite losses, aux > 0,
+               the drop share, ms per step, tok/s, peak memory; (d) its
+               weights copied to the host, 1 x 512 tokens: the loss and
+               every gradient leaf card against host, the tokens routed
+               apart counted (bounds per such token); (e) llama4-scout at
+               depth 2 through K8: K8 alone at [4, 4096, 8, 5, 128] against
+               its plain version and timed beside SDPA, the serving chain
+               as (a) with 2 K8 launches a prefill, flash vs blocked last
+               logits, the check at capacity factor 16; (f) musicgen-medium
+               and internvl2-1b at full width and depth, 1 x 4096 from
+               TokenPipeline: one loss_fn through K8 and through blocked,
+               3 AdamW steps with remat, K8 2 x layers a step
 
 The kernels phase also holds K8 (flash attention) against its plain version
 at the prefill's shape in f32 (the FMA body) and bf16 (the tensor-core
@@ -193,6 +218,7 @@ It needs a CUDA card and the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import glob
@@ -393,12 +419,12 @@ def timed(fn, prefix: str = "") -> dict:
 
 
 def event_timed(fn, prefix: str = "", reps: int = 20) -> dict:
-    """``timed`` for a call whose backward autograd launches from its own
-    device thread: the device time from CUDA events behind a device sleep
-    (flushes subtracted), since the profiler's traced windows of such calls
-    lost records in two of four full runs (the first flush of the port's
-    forward + backward in every window of two runs, one of SDPA's in
-    another)."""
+    """``timed`` by CUDA events behind a device sleep (flushes
+    subtracted), where the profiler's traced windows lose records: a call
+    whose backward autograd launches from its own device thread (the first
+    flush of the port's forward + backward in every window of two of four
+    full runs, one of SDPA's in another), and SDPA at llama4-scout's shape
+    late in a full run (three windows in a row)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -718,24 +744,34 @@ def flash_kernel(dev, peak_bw: float) -> dict:
     """K8 at the serve phase's prefill shape (llama3.2-1b: B 4, S 4096, 8
     KV heads of 4 query heads, D 64) against its plain version in f32 and
     bf16, and its time, the plain version's and SDPA's in bf16."""
-    import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops, ref
     cfg = get_arch(LM_ARCH)
-    b, s, hkv, g, d = (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv,
-                       cfg.n_heads // cfg.n_kv, cfg.hd)
+    return k8_at(dev, peak_bw, (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv,
+                                cfg.n_heads // cfg.n_kv, cfg.hd),
+                 cfg.q_block, (torch.float32, torch.bfloat16), timed)
+
+
+def k8_at(dev, peak_bw: float, shape, q_block: int, dtypes, timer) -> dict:
+    """K8 at ``shape`` (B, S, Hkv, G, D) on seeded inputs: held against its
+    plain version in each of ``dtypes``, then timed in bf16 by ``timer``
+    (``timed`` or ``event_timed``) beside the plain version and
+    ``scaled_dot_product_attention`` (timed only; the port never calls
+    it), with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    b, s, hkv, g, d = shape
     gen = torch.Generator(device=dev).manual_seed(1)
     q32 = torch.randn(b, s, hkv, g, d, generator=gen, device=dev)
     k32 = torch.randn(b, s, hkv, d, generator=gen, device=dev)
     v32 = torch.randn(b, s, hkv, d, generator=gen, device=dev)
     err = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-        got = ops.flash_attention(q, k, v, cfg.q_block)
-        want = ref.flash_attention(q, k, v, cfg.q_block)
+        got = ops.flash_attention(q, k, v, q_block)
+        want = ref.flash_attention(q, k, v, q_block)
         torch.cuda.synchronize()
         err[str(dtype)] = close(got, want, K8_TOL[dtype], K8_TOL[dtype],
-                                f"K8 {dtype}")
+                                f"K8 {dtype} at {list(shape)}")
         del got, want
     q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
     del q32, k32, v32
@@ -744,15 +780,15 @@ def flash_kernel(dev, peak_bw: float) -> dict:
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     flops = 2 * b * hkv * g * d * s * s      # causal: half of 4*B*Hq*D*S^2
     byts = nbytes(q, k, v) + q.numel() * q.element_size()
-    t = timed(lambda: ops.flash_attention(q, k, v, cfg.q_block))
+    t = timer(lambda: ops.flash_attention(q, k, v, q_block))
     ms = t["ms"]
     bound_ms = max(byts / peak_bw, flops / BF16_TFLOPS) * 1e3
     return dict(
-        name="flash_attention", shape=[b, s, hkv, g, d], dtype="bfloat16",
+        name="flash_attention", shape=list(shape), dtype="bfloat16",
         max_abs_err=err[str(torch.bfloat16)], max_abs_err_by_dtype=err,
         **t,
-        **timed(lambda: ref.flash_attention(q, k, v, cfg.q_block), "plain_"),
-        **timed(lambda: F.scaled_dot_product_attention(
+        **timer(lambda: ref.flash_attention(q, k, v, q_block), "plain_"),
+        **timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), "library_"),
         bound_ms=bound_ms,
         bound_by=("bytes" if byts / peak_bw >= flops / BF16_TFLOPS
@@ -2495,6 +2531,516 @@ def phase_lm_train(dev: torch.device, build_dir: Path,
     return res
 
 
+# The MoE / sliding-window / stub-frontend phase (lm_moe): published widths,
+# random weights from a seed, the depth cut as below.
+MOE_ARCH, SCOUT_ARCH = "mixtral-8x22b", "llama4-scout-17b-a16e"
+FRONTEND_ARCHS = ("musicgen-medium", "internvl2-1b")
+MOE_SERVE_LAYERS, SCOUT_SERVE_LAYERS, MOE_TRAIN_LAYERS = 4, 2, 1
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_MB, MOE_TRAIN_STEPS = 2, 8192, 2, 4
+MOE_LR, MOE_MOMENTUM = 1e-3, 0.9
+MOE_HOST_SEQ = 512
+WINDOW_SHAPE, WINDOW = (1, 8192, 8, 6, 128), 4096
+FRONTEND_SEQ, FRONTEND_STEPS = 4096, 3
+# The forward that prefill + decode is held against covers prompt and
+# decoded tokens (4,096 + 32 = 4,128), which the 512-row q blocks (and K8)
+# do not divide: it takes the blocked route in 32-row blocks.
+CHECK_Q_BLOCK = 32
+# (b) the window's sliced view against one whole-sequence block: the same
+# products and masks, the masked keys adding exact zeros; only the f32
+# sums' order differs before the one bf16 rounding of the output, so two
+# bf16 ulps at |o| < 2 (the bf16 attention bound of tests/test_torch_lm.py).
+WINDOW_TOL = 1.6e-2
+# (d) card vs host at depth 1, 1 x 512 tokens, bf16.  A token routed apart
+# (a router-logit near-tie rounding the other way on one side, or the drop
+# that such a move shifts) changes its own output by O(1), its nll and its
+# share of every gradient with it.  The CPU rehearsal's proxy (mixtral's
+# layer at d 1,024, d_ff 2,048, 8 experts, top-2, bf16 against the same
+# weights in f32, 1 x 512 zipf tokens, seeds 0-2): 12, 2 and 4 tokens
+# routed apart; loss differences 8.3e-5, 2.2e-3, 1.6e-3, so about 2e-3
+# whatever the count; the worst non-expert leaf (relative L2) 10.1 %,
+# 5.7 %, 4.3 % (the router), experts no such token touched at most ~1 %.
+# On the card (NVIDIA H100 80GB HBM3, 700 W) the loss differed by 1.2e-3
+# (3 tokens apart) and 1.9e-3 (none). So the loss is held to
+# MOE_HOST_LOSS_TOL (2.3x the proxy's worst) + MOE_FLIP_LOSS per token
+# routed apart, the non-expert leaves to HOST_GRAD_REL + MOE_FLIP_GRAD per
+# such token (1.7x, 1.2x and 2.1x the proxy's), an untouched expert's
+# slices to HOST_GRAD_REL; a touched expert's slices are reported, not
+# bounded.
+MOE_HOST_LOSS_TOL = 5e-3
+MOE_FLIP_LOSS, MOE_FLIP_GRAD = 4e-3, 0.01
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Every MoE layer call's routing, caught at ``moe._routing_indices``:
+    a list of (kept experts, sorted, -1 where the assignment dropped:
+    ``[B, S, K]``; kept assignments; all assignments)."""
+    from repro_torch.models import moe
+    real = moe._routing_indices
+    log: list = []
+
+    def spy(logits, top_k, capacity):
+        out = real(logits, top_k, capacity)
+        experts, keep = out[4], out[3].view_as(out[4])
+        log.append((torch.where(keep, experts, -1).sort(-1).values,
+                    int(keep.sum()), keep.numel()))
+        return out
+    moe._routing_indices = spy
+    try:
+        yield log
+    finally:
+        moe._routing_indices = real
+
+
+def drop_share(log) -> float:
+    return 1.0 - sum(k for _, k, _ in log) / max(sum(n for _, _, n in log), 1)
+
+
+def routed_apart(a: list, b: list) -> torch.Tensor:
+    """``[B, S]``: the positions whose kept expert set differs between two
+    runs in any layer (lists of per-layer ``[B, S, K]`` routings)."""
+    out = torch.zeros(a[0].shape[:2], dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):
+        out |= (x != y).any(-1)
+    return out
+
+
+def masked_bf16_close(a: torch.Tensor, b: torch.Tensor, ok: torch.Tensor,
+                      what: str) -> dict:
+    """``bf16_close`` over the positions ``ok`` (``[B, T]`` of ``[B, T,
+    V]`` logits) whose routing agreed on both sides; all finite."""
+    check(a.shape == b.shape and bool(torch.isfinite(a).all())
+          and bool(torch.isfinite(b).all()), f"{what}: shapes or finite")
+    diff = (a.float() - b.float()).abs()[ok]
+    res = dict(max_abs=float(diff.max()) if diff.numel() else 0.0,
+               mean_abs=float(diff.mean()) if diff.numel() else 0.0,
+               compared=int(ok.sum()), positions=ok.numel())
+    check(res["compared"] > 0 and res["max_abs"] <= BF16_MAX
+          and res["mean_abs"] <= BF16_MEAN, f"{what}: {res}")
+    return res
+
+
+def moe_params_expected(cfg) -> int:
+    """The parameter count of an MoE config from its widths."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = d * hd * (cfg.n_heads + cfg.n_kv) * 2
+    experts = 3 * cfg.moe_experts * d * cfg.d_ff + d * cfg.moe_experts
+    return (cfg.n_layers * (attn + experts + 2 * d)
+            + 2 * cfg.vocab_padded * d + d)
+
+
+def serve_chain(model, cfg, tokens, gen: int, dev) -> dict:
+    """prefill -> ``prefill_into_cache`` -> ``gen`` greedy decode steps,
+    timed, with the prefill's K8 launches counted from 0 and every MoE
+    layer's routing: per layer ``[B, P + gen, K]`` over the prompt and the
+    decoded positions, and the prefill's drop share."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import (init_decode_cache, make_prefill_step,
+                                    make_serve_step, prefill_into_cache)
+    b, p = tokens.shape
+    cache = init_decode_cache(cfg, b, p + gen, dev)
+    step = make_serve_step(cfg)
+    ops.reset_kernel_launches()
+    with routing_log() as log:
+        t0 = time.perf_counter()
+        logits, caches = make_prefill_step(cfg)(model, {"tokens": tokens})
+        prefill_into_cache(*caches["attn_kv"], cache["attn"])
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        del caches
+        k8 = ops.kernel_launches()["flash_attention"]
+        toks, step_logits, lg = [], [], logits
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            toks.append(greedy(lg, cfg.vocab))
+            lg, cache = step(model, cache, {"tokens": toks[-1]})
+            step_logits.append(lg)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    n = cfg.n_layers
+    routes = [torch.cat([log[i][0]] + [log[n + j * n + i][0]
+                                      for j in range(gen)], 1)
+              for i in range(n)] if log else []
+    return dict(logits=logits, step_logits=step_logits,
+                tokens=torch.cat(toks, 1) if toks else None,
+                cache=cache["attn"],
+                prefill_s=t_prefill, decode_s=t_decode, k8=k8,
+                k8_after_decode=ops.kernel_launches()["flash_attention"],
+                routes=routes, drop_share=drop_share(log[:n]))
+
+
+def chain_vs_forward(model, cfg, prompts, gen: int, dev) -> dict:
+    """Prefill + decode against one forward over the prompt and the decoded
+    tokens, both at ``cfg``'s capacity factor (chosen so nothing drops):
+    the last prompt position's and every decode step's logits, compared at
+    the positions routed alike in every layer."""
+    from repro_torch.models import forward
+    run = serve_chain(model, cfg, prompts, gen, dev)
+    check(run["drop_share"] == 0.0, f"the check's prefill dropped "
+          f"{run['drop_share']}")
+    seq = torch.cat([prompts, run["tokens"]], 1)
+    fcfg = dataclasses.replace(cfg, attn_impl="blocked",
+                               q_block=CHECK_Q_BLOCK)
+    with torch.inference_mode(), routing_log() as log:
+        logits, _, _ = forward(model, fcfg, {"tokens": seq})
+    p = prompts.shape[1]
+    logits = logits[:, p - 1:]
+    chain = torch.cat([run["logits"]] + run["step_logits"], 1)
+    apart = routed_apart(run["routes"], [x for x, _, _ in log])
+    res = masked_bf16_close(chain[..., :cfg.vocab], logits[..., :cfg.vocab],
+                            ~apart[:, p - 1:], "prefill + decode vs forward")
+    res.update(capacity_factor=cfg.capacity_factor,
+               forward_drop_share=drop_share(log),
+               positions_routed_apart=int(apart.sum()),
+               of_positions=apart.numel(),
+               compared_positions_routed_apart=int(apart[:, p - 1:].sum()))
+    return res
+
+
+def moe_serve(model, cfg, dev, label: str) -> dict:
+    """(a) / (e): 4 x 4,096 prompt tokens, a warm-up, then the timed chain
+    at the config's capacity factor (1.25), then the check at E / top_k."""
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)).to(dev)
+    serve_chain(model, cfg, prompts, 2, dev)             # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = serve_chain(model, cfg, prompts, SERVE_GEN, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    k8_want = cfg.n_layers if cfg.attn_impl == "flash" else 0
+    check(run["k8"] == k8_want, f"{label}: K8 {run['k8']} in a prefill, "
+          f"{k8_want} derived")
+    check(run["k8_after_decode"] == run["k8"], f"{label}: decode ran K8")
+    toks = run["tokens"]
+    check(toks.shape == (SERVE_BATCH, SERVE_GEN) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"{label}: decoded tokens")
+    check(all(bool(torch.isfinite(x).all())
+              for x in [run["logits"]] + run["step_logits"]),
+          f"{label}: non-finite logits")
+    cache = run["cache"]
+    total = SERVE_PROMPT + SERVE_GEN
+    cap = min(total, cfg.window) if cfg.window else total
+    check(cache.capacity == cap and cache.pos.tolist() == [total]
+          * cfg.n_layers, f"{label}: cache capacity / positions")
+    # the ring: the decoded positions overwrote the oldest slots
+    want_slots = torch.arange(total - cap, total, dtype=torch.int32,
+                              device=dev)
+    check(bool((cache.slot_pos.sort(-1).values == want_slots).all()),
+          f"{label}: ring slot positions")
+    res = dict(layers=cfg.n_layers, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+               gen=SERVE_GEN, cache_capacity=cap, ring_wrapped=cap < total,
+               prefill_ms=run["prefill_s"] * 1e3,
+               prefill_tok_s=SERVE_BATCH * SERVE_PROMPT / run["prefill_s"],
+               decode_ms_per_token=run["decode_s"] * 1e3 / SERVE_GEN,
+               decode_tok_s=SERVE_BATCH * SERVE_GEN / run["decode_s"],
+               peak_mem_bytes=peak, k8_launches=run["k8"],
+               capacity_factor=cfg.capacity_factor,
+               drop_share=run["drop_share"],
+               first_tokens=toks[0, :8].tolist())
+    del run
+    no_drop = dataclasses.replace(
+        cfg, capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    res["vs_forward"] = dict(
+        chain_vs_forward(model, no_drop, prompts, SERVE_GEN, dev),
+        note="capacity factor E / top_k serves only this check: at the "
+             "default a 4,096-token prefill drops what a one-token decode "
+             "step does not")
+    torch.cuda.empty_cache()
+    return res
+
+
+def window_check(dev) -> dict:
+    """(b) the blocked route's sliced ``window + q_block`` view at full
+    width against one whole-sequence ``_block_attend`` with the window
+    mask (scores [1, 8, 6, 8192, 8192] f32, 12.9 GB)."""
+    from repro_torch.models import layers
+    b, s, hkv, g, d = WINDOW_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(b, s, hkv * g, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = layers.attention(q, k, v, window=WINDOW, q_block=512)
+        torch.cuda.synchronize()
+        sliced_s = time.perf_counter() - t0
+        pos = torch.arange(s, device=dev)
+        want = layers._block_attend(q.view(b, s, hkv, g, d), k, v, pos, pos,
+                                    WINDOW).reshape(b, s, hkv * g, d)
+    err = close(got, want, WINDOW_TOL, WINDOW_TOL, "(b) window view")
+    return dict(shape=list(WINDOW_SHAPE), window=WINDOW, q_block=512,
+                kv_view=WINDOW + 512, max_abs_err=err, tol=WINDOW_TOL,
+                differing_share=float((got != want).float().mean()),
+                sliced_ms=sliced_s * 1e3)
+
+
+def moe_train(dev) -> tuple:
+    """(c) mixtral at depth 1: TokenPipeline 2 x 8,192 zipf tokens in 2
+    microbatches, remat, the blocked route (window 4,096), SGD with
+    momentum, 4 steps; returns the readings and the model."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import sgd
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    check(cfg.remat and cfg.attn_impl == "blocked" and cfg.window > 0,
+          "(c) mixtral trains with remat through the blocked window route")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == moe_params_expected(cfg), f"(c) {n_params} params")
+    opt = sgd(MOE_LR, momentum=MOE_MOMENTUM)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, opt, MOE_TRAIN_MB)
+    pipe = TokenPipeline(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed=0,
+                         depth=2, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, auxs, times = [], [], []
+    with routing_log() as log:
+        t_prev = time.perf_counter()
+        for batch in pipe.batches(MOE_TRAIN_STEPS):
+            model, state, m = step(model, state, batch)
+            losses.append(float(m["loss"]))      # waits for the step
+            auxs.append(float(m["aux"]))
+            now = time.perf_counter()
+            times.append((now - t_prev) * 1e3)
+            t_prev = now
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses + auxs),
+          f"(c) losses {losses}, aux {auxs}")
+    check(all(a > 0 for a in auxs), f"(c) aux {auxs}")
+    drops = drop_share(log)
+    check(0.0 <= drops < 1.0, f"(c) drop share {drops}")
+    med = statistics.median(times[1:])
+    del state, step, opt
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params=n_params, batch=MOE_TRAIN_BATCH,
+                seq=MOE_TRAIN_SEQ, microbatches=MOE_TRAIN_MB,
+                steps=MOE_TRAIN_STEPS, optimizer=f"sgd(lr={MOE_LR}, "
+                f"momentum={MOE_MOMENTUM})", losses=losses, aux=auxs,
+                drop_share=drops, ms_per_step=times, median_ms=med,
+                tok_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (med / 1e3),
+                peak_mem_bytes=peak), model, cfg
+
+
+def moe_vs_host(model, cfg, dev) -> dict:
+    """(d) the card's depth-1 mixtral against the host from the same
+    weights (copied from the card), 1 x 512 tokens: the loss and every
+    gradient leaf by name, the assignments routed apart counted."""
+    import copy
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import value_and_grad
+    from repro_torch.models.convert import export_named
+    batch = next(iter(TokenPipeline(cfg, 1, MOE_HOST_SEQ, seed=3, depth=0,
+                                    device="cpu").batches(1)))
+    with routing_log() as clog:
+        c_loss, c_m, c_grads = value_and_grad(model, cfg, batch)
+    host = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    with routing_log() as hlog:
+        h_loss, h_m, h_grads = value_and_grad(host, cfg, batch)
+    host_s = time.perf_counter() - t0
+    n = cfg.n_layers                  # the forward's calls (then remat's)
+    c_route = [x.cpu() for x, _, _ in clog[:n]]
+    h_route = [x for x, _, _ in hlog[:n]]
+    apart = routed_apart(c_route, h_route)[0]            # [S]
+    assign_apart = int(sum((c != h).sum() for c, h in zip(c_route, h_route)))
+    touched = set()
+    for c, h in zip(c_route, h_route):
+        for r in (c[0][apart], h[0][apart]):
+            touched.update(int(e) for e in r.flatten() if e >= 0)
+    dl = abs(float(c_loss) - float(h_loss))
+    loss_tol = MOE_HOST_LOSS_TOL + MOE_FLIP_LOSS * int(apart.sum())
+    check(dl <= loss_tol, f"(d) card vs host loss {dl} > {loss_tol}")
+    card_tree = export_named(model, c_grads)
+    host_tree = export_named(host, h_grads)
+
+    def rel(a, b) -> float:
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+    leaves, experts = {}, {}
+    for name in ("embed", "final_norm", "lm_head"):
+        leaves[name] = rel(card_tree[name], host_tree[name])
+    for name, a in card_tree["layers"].items():
+        if name != "moe":
+            leaves[f"layers/{name}"] = rel(a, host_tree["layers"][name])
+    moe_c, moe_h = card_tree["layers"]["moe"], host_tree["layers"]["moe"]
+    leaves["layers/moe/router"] = rel(moe_c["router"], moe_h["router"])
+    for name in ("w1", "w3", "w2"):
+        for e in range(cfg.moe_experts):
+            experts[f"layers/moe/{name}[{e}]"] = (
+                rel(moe_c[name][:, e], moe_h[name][:, e]), e in touched)
+    worst = max(leaves, key=leaves.get)
+    grad_tol = HOST_GRAD_REL + MOE_FLIP_GRAD * int(apart.sum())
+    check(leaves[worst] <= grad_tol,
+          f"(d) gradient {worst} differs by {leaves[worst]} > {grad_tol}")
+    bounded = {k: v for k, (v, t) in experts.items() if not t}
+    worst_e = max(bounded, key=bounded.get) if bounded else None
+    check(worst_e is None or bounded[worst_e] <= HOST_GRAD_REL,
+          f"(d) expert gradient {worst_e} differs by "
+          f"{bounded.get(worst_e)}")
+    del host, h_grads, c_grads
+    return dict(seq=MOE_HOST_SEQ, loss_card=float(c_loss),
+                loss_host=float(h_loss), loss_diff=dl, loss_tol=loss_tol,
+                aux_card=float(c_m["aux"]), aux_host=float(h_m["aux"]),
+                tokens_routed_apart=int(apart.sum()),
+                assignments_routed_apart=assign_apart,
+                assignments=MOE_HOST_SEQ * cfg.moe_top_k,
+                experts_touched=sorted(touched),
+                worst_leaf=worst, worst_rel_l2=leaves[worst],
+                grad_tol=grad_tol,
+                worst_untouched_expert=worst_e,
+                worst_untouched_expert_rel_l2=bounded.get(worst_e),
+                touched_expert_rel_l2={k: v for k, (v, t) in experts.items()
+                                       if t},
+                host_s=host_s)
+
+
+def frontend_train(arch: str, dev) -> dict:
+    """(f) a stub-frontend model at full width and depth: one ``loss_fn``
+    through K8 and through the blocked route from the same weights, then
+    ``FRONTEND_STEPS`` AdamW steps of ``TokenPipeline`` 1 x 4,096 through
+    K8 with remat, 2 x layers launches a step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, loss_fn, make_train_step
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_arch(arch), attn_impl="flash")
+    check(cfg.remat, f"{arch} trains with remat")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = list(TokenPipeline(cfg, 1, FRONTEND_SEQ, seed=0, depth=2,
+                                 device=dev).batches(FRONTEND_STEPS))
+    first = batches[0]
+    routes = {}
+    for impl in ("flash", "blocked"):
+        ops.reset_kernel_launches()
+        with torch.no_grad():
+            loss, m = loss_fn(model, dataclasses.replace(cfg, attn_impl=impl),
+                              first)
+        routes[impl] = dict(loss=float(loss),
+                            k8=ops.kernel_launches()["flash_attention"])
+    check(routes["flash"]["k8"] == cfg.n_layers
+          and routes["blocked"]["k8"] == 0, f"{arch} K8 {routes}")
+    dloss = abs(routes["flash"]["loss"] - routes["blocked"]["loss"])
+    check(dloss <= TRAIN_LOSS_TOL, f"{arch} flash vs blocked loss {dloss}")
+    opt = adamw(TRAIN_LR)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, opt, 1)
+    per_step = 2 * cfg.n_layers              # forward + remat recompute
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times, k8 = [], [], []
+    ops.reset_kernel_launches()
+    t_prev = time.perf_counter()
+    for batch in batches:
+        n0 = ops.kernel_launches()["flash_attention"]
+        model, state, m = step(model, state, batch)
+        losses.append(float(m["loss"]))
+        now = time.perf_counter()
+        times.append((now - t_prev) * 1e3)
+        t_prev = now
+        k8.append(ops.kernel_launches()["flash_attention"] - n0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses), f"{arch} losses {losses}")
+    check(k8 == [per_step] * FRONTEND_STEPS, f"{arch} K8 per step {k8}, "
+          f"{per_step} derived ({cfg.n_layers} layers x 2)")
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+    return dict(arch=arch, params=n_params, frontend=cfg.frontend,
+                seq=FRONTEND_SEQ, vs_blocked=dict(routes, loss_diff=dloss),
+                losses=losses, ms_per_step=times,
+                tok_s=FRONTEND_SEQ / (statistics.median(times[1:]) / 1e3),
+                peak_mem_bytes=peak, k8_per_step=k8, k8_derived=per_step,
+                k8_launches=sum(k8))
+
+
+def phase_lm_moe(dev: torch.device, peak_bw: float) -> dict:
+    """MoE blocks with sliding-window attention and the stub frontends on
+    the card (see the module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, param_count
+    t_phase = time.perf_counter()
+    res: dict = {"part_s": {}}
+
+    def lap(part: str) -> None:
+        res["part_s"][part] = time.perf_counter() - t_phase - sum(
+            res["part_s"].values())
+
+    # (a) mixtral serving at depth 4
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_SERVE_LAYERS)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    check(param_count(model) == moe_params_expected(cfg),
+          f"(a) {param_count(model)} params")
+    res["mixtral_serve"] = dict(arch=cfg.name, params=param_count(model),
+                                **moe_serve(model, cfg, dev, "(a)"))
+    del model
+    torch.cuda.empty_cache()
+    lap("a")
+
+    # (b) the window at full width
+    res["window"] = window_check(dev)
+    torch.cuda.empty_cache()
+    lap("b")
+
+    # (c) mixtral training at depth 1, then (d) card vs host on its weights
+    res["mixtral_train"], model, cfg = moe_train(dev)
+    lap("c")
+    res["mixtral_vs_host"] = moe_vs_host(model, cfg, dev)
+    del model
+    torch.cuda.empty_cache()
+    lap("d")
+
+    # (e) llama4-scout serving at depth 2 through K8, and K8 alone there
+    cfg = dataclasses.replace(get_arch(SCOUT_ARCH),
+                              n_layers=SCOUT_SERVE_LAYERS, attn_impl="flash")
+    # timed by CUDA events: late in a full run the profiler's windows lost
+    # SDPA's records three times in a row here (as lm_train (a)'s did)
+    scout_k8 = k8_at(dev, peak_bw, (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv,
+                                    cfg.n_heads // cfg.n_kv, cfg.hd),
+                     cfg.q_block, (torch.bfloat16,), event_timed)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    check(param_count(model) == moe_params_expected(cfg),
+          f"(e) {param_count(model)} params")
+    scout = dict(arch=cfg.name, params=param_count(model),
+                 **moe_serve(model, cfg, dev, "(e)"))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)).to(dev)
+    runs = {}
+    for impl in ("flash", "blocked"):
+        runs[impl] = serve_chain(model, dataclasses.replace(
+            cfg, attn_impl=impl), prompts, 0, dev)
+    check(runs["flash"]["k8"] == cfg.n_layers and runs["blocked"]["k8"] == 0,
+          "(e) K8 launches by route")
+    apart = routed_apart(runs["flash"]["routes"], runs["blocked"]["routes"])
+    scout["vs_blocked"] = dict(
+        masked_bf16_close(runs["flash"]["logits"][..., :cfg.vocab],
+                          runs["blocked"]["logits"][..., :cfg.vocab],
+                          ~apart[:, -1:], "(e) flash vs blocked logits"),
+        positions_routed_apart=int(apart.sum()), of_positions=apart.numel())
+    scout["k8"] = {k: v for k, v in scout_k8.items() if k != "name"}
+    res["scout_serve"] = scout
+    del model, runs
+    torch.cuda.empty_cache()
+    lap("e")
+
+    # (f) the stub frontends at full width and depth through K8
+    res["frontends"] = [frontend_train(arch, dev) for arch in FRONTEND_ARCHS]
+    lap("f")
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["k8_launches"] = dict(
+        scout_prefill=scout["k8_launches"],
+        frontends=sum(f["k8_launches"] for f in res["frontends"]))
+    emit("lm_moe", **res)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -2609,6 +3155,8 @@ def main() -> int:
     from repro_torch.core.perfmodel import PLATFORMS
     train_res = phase_lm_train(torch.device("cuda", 0), ROOT / "build",
                                PLATFORMS[platform].mem_bw_gbps * 1e9)
+    moe_res = phase_lm_moe(torch.device("cuda", 0),
+                           PLATFORMS[platform].mem_bw_gbps * 1e9)
 
     launches = dict(train["launches"])
     launches["segment_sum"] = seg_launches["segment_sum"]
@@ -2617,13 +3165,22 @@ def main() -> int:
     # baseline), so the train run's count of it stands
     launches["cache_combine_pipelined"] = \
         shard_launches["cache_combine_pipelined"]
-    # K8's paths: the serve phase's prefill and the lm_train slice
+    # K8's paths: the serve phase's prefill, the lm_train slice, and in
+    # lm_moe llama4-scout's prefill and the two frontends' training steps
     k8_paths = dict(serve=serve_res["k8_launches"],
-                    lm_train=train_res["slice"]["launches"]["flash_attention"])
+                    lm_train=train_res["slice"]["launches"]["flash_attention"],
+                    lm_moe_scout_prefill=moe_res["k8_launches"][
+                        "scout_prefill"],
+                    lm_moe_frontends=moe_res["k8_launches"]["frontends"])
     launches["flash_attention"] = sum(k8_paths.values())
+    scout_k8 = moe_res["scout_serve"]["k8"]
     kern["flash_attention"].update(launches_by_path=k8_paths, **{
         key: train_res["grad"][key] for key in train_res["grad"]
-        if key.startswith("train_")})
+        if key.startswith("train_")}, **{
+        f"scout_{key}": scout_k8[key] for key in (
+            "shape", "max_abs_err", "ms", "call_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "tflops",
+            "bound_fraction", "timing")})
     kernels = []
     for name in ops.KERNELS:
         k = kern[name]
@@ -2639,8 +3196,8 @@ def main() -> int:
                                        "bf16_ms", "bf16_bound_ms",
                                        "cache_less", "peer_gather")
                if key in k},
-            **{key: k[key] for key in k if key.startswith("train_")
-               or key == "launches_by_path"}))
+            **{key: k[key] for key in k if key.startswith(
+                ("train_", "scout_")) or key == "launches_by_path"}))
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

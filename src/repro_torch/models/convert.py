@@ -2,7 +2,8 @@
 
 The reference keeps parameters as a nested dict with every layer weight
 stacked on a leading ``[L, ...]`` axis (``embed``, ``final_norm``,
-``lm_head``, ``layers: {ln1, wq, ...}``).  ``load_reference_params`` copies
+``lm_head``, ``layers: {ln1, wq, ...}``, an MoE layer's routed FFN nested
+as ``layers: {moe: {router, w1, w3, w2}}``).  ``load_reference_params`` copies
 such a tree of numpy arrays into an ``LM`` bit for bit; ``export_params``
 gives it back, so a round trip is the identity.  ``export_named`` lays any
 ``{parameter name: tensor}`` dict (gradients, optimizer moments) out in
@@ -29,11 +30,12 @@ _TOP = ("embed", "final_norm", "lm_head")
 
 def _names(model: nn.Module) -> Iterator[Tuple[str, ...]]:
     """Tree path of every parameter: top-level leaves by name, layer leaves
-    as ``("layers", name)`` (one stacked leaf over all layers)."""
+    as ``("layers", *name)`` (one stacked leaf over all layers; a
+    submodule's leaf nests, as ``("layers", "moe", "router")``)."""
     for name in _TOP:
         yield (name,)
-    for name, _ in model.layers[0].named_parameters(recurse=False):
-        yield ("layers", name)
+    for name, _ in model.layers[0].named_parameters():
+        yield ("layers", *name.split("."))
 
 
 def _to_tensor(arr: np.ndarray, dtype: torch.dtype, shape: Tuple[int, ...],
@@ -66,8 +68,9 @@ def load_reference_params(model: nn.Module,
             node: object = tree
             for key in path:
                 node = node[key]  # type: ignore[index]
+            name = ".".join(path[1:])
             if path[0] == "layers":
-                like = getattr(model.layers[0], path[1])
+                like = model.layers[0].get_parameter(name)
                 shape = (len(model.layers), *like.shape)
             else:
                 like = getattr(model, path[0])
@@ -76,7 +79,7 @@ def load_reference_params(model: nn.Module,
                            "/".join(path))
             if path[0] == "layers":
                 for i, layer in enumerate(model.layers):
-                    getattr(layer, path[1]).copy_(t[i])
+                    layer.get_parameter(name).copy_(t[i])
             else:
                 like.copy_(t)
     return model
@@ -85,21 +88,24 @@ def load_reference_params(model: nn.Module,
 def export_named(model: nn.Module,
                  tensors: Dict[str, torch.Tensor]) -> Dict[str, object]:
     """The reference's tree of a dict keyed by ``model``'s parameter names
-    (``embed``, ``layers.<i>.<leaf>``, ...) as numpy float32 copies (bf16
-    widened exactly; a later in-place update does not reach them), layer
-    leaves stacked ``[L, ...]``."""
+    (``embed``, ``layers.<i>.<leaf>``, ``layers.<i>.moe.<leaf>``, ...) as
+    numpy float32 copies (bf16 widened exactly; a later in-place update
+    does not reach them), layer leaves stacked ``[L, ...]``."""
     def host(name: str) -> np.ndarray:
         return tensors[name].detach().to("cpu", torch.float32,
                                          copy=True).numpy()
 
-    layers: Dict[str, np.ndarray] = {}
-    tree: Dict[str, object] = {"layers": layers}
+    tree: Dict[str, object] = {"layers": {}}
     for path in _names(model):
-        if path[0] == "layers":
-            layers[path[1]] = np.stack([host(f"layers.{i}.{path[1]}")
-                                        for i in range(len(model.layers))])
-        else:
+        if path[0] != "layers":
             tree[path[0]] = host(path[0])
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})  # type: ignore[assignment]
+        name = ".".join(path[1:])
+        node[path[-1]] = np.stack([host(f"layers.{i}.{name}")
+                                   for i in range(len(model.layers))])
     return tree
 
 

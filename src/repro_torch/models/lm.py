@@ -1,26 +1,32 @@
 """The LM substrate (port of ``repro/models/lm.py``): one ``ModelConfig``
-covers the ten architectures, and the dense kind trains and serves.
+covers the ten architectures; the dense and MoE kinds train and serve.
 
 Ported: the config (fields, defaults, derived sizes), the parameter
-counts, and for ``kind="dense"`` with full attention (``window=0``) and no
-frontend stub: ``init_params``, ``forward`` (the training forward: logits,
-with the per-layer K/V when asked), ``loss_fn``, ``value_and_grad``,
-``make_train_step`` (microbatched gradient accumulation),
-``make_prefill_step``, ``init_decode_cache`` and ``make_serve_step``
-(one-token decode against the stacked cache).  Every other kind, window or
-frontend raises ``NotImplementedError`` naming its ROADMAP item.
+counts, and for ``kind="dense"`` and ``kind="moe"`` (``models/moe.py``),
+with full or sliding-window attention (``window > 0``: the blocked route,
+a ring-buffer decode cache) and the stub frontends (``audio_stub`` frame
+embeddings, ``vision_stub`` embeddings prepended to the tokens):
+``init_params``, ``forward`` (the training forward: logits, the layers'
+summed MoE aux loss, the per-layer K/V when asked), ``loss_fn``,
+``value_and_grad``, ``make_train_step`` (microbatched gradient
+accumulation), ``make_prefill_step``, ``init_decode_cache`` and
+``make_serve_step`` (one-token decode against the stacked cache).  The
+``rwkv`` and ``zamba`` kinds raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 Parameters live in an ``nn.Module`` whose names are the reference's
 (``embed``, ``final_norm``, ``lm_head``, and per layer ``ln1``, ``wq``,
-``wk``, ``wv``, ``wo``, ``ln2``, ``w1``, ``w3``, ``w2``), with weights
+``wk``, ``wv``, ``wo``, ``ln2`` and either ``w1``, ``w3``, ``w2`` or the
+submodule ``moe`` with ``router``, ``w1``, ``w3``, ``w2``), with weights
 ``[in, out]`` so products stay ``x @ W``.  The reference stacks layers on
 a leading axis and scans; here ``layers`` is a ``ModuleList`` and a loop
 (``convert.py`` maps between the two).  The parameters do not require
 gradients; ``value_and_grad`` turns that on for the one backward it
 takes, so serving and plain forwards record nothing.  Training works on a
 ``{name: tensor}`` dict with ``named_parameters()``'s names (``embed``,
-``final_norm``, ``lm_head``, ``layers.<i>.<leaf>``); the prefill and decode
-steps run under ``torch.inference_mode()``.
+``final_norm``, ``lm_head``, ``layers.<i>.<leaf>``,
+``layers.<i>.moe.<leaf>``); the prefill and decode steps run under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -29,12 +35,14 @@ import dataclasses
 from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..optim.optimizers import apply_updates
 from .layers import (KVCache, attention, decode_attention, gelu_mlp,
                      init_linear, init_rms, rms_norm, rope, swiglu)
+from .moe import init_moe_params, moe_ffn
 
 __all__ = ["ModelConfig", "LM", "init_params", "forward", "loss_fn",
            "value_and_grad", "make_train_step", "make_prefill_step",
@@ -134,23 +142,13 @@ def active_param_count(cfg: ModelConfig) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Refuse what this slice does not run, naming its ROADMAP item."""
-    if cfg.kind == "moe":
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported "
-                                  f"yet (ROADMAP: LM stack, MoE)")
+    """Refuse what the port does not run yet, naming its ROADMAP item."""
     if cfg.kind in ("rwkv", "zamba"):
         raise NotImplementedError(f"{cfg.name}: {cfg.kind} blocks are not "
                                   f"ported yet (ROADMAP: LM stack, RWKV "
                                   f"and Mamba)")
-    if cfg.kind != "dense":
+    if cfg.kind not in ("dense", "moe"):
         raise ValueError(cfg.kind)
-    if cfg.window:
-        raise NotImplementedError(f"{cfg.name}: sliding-window attention is "
-                                  f"not ported yet (ROADMAP: LM stack, SWA)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  f"is not ported yet (ROADMAP: LM stack, "
-                                  f"stub frontends)")
     if cfg.attn_impl not in ("blocked", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
@@ -158,35 +156,68 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ====================================================================== init
 
 
-class DenseBlock(nn.Module):
-    """One dense layer's weights, under the reference's names."""
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _linears(cfg: ModelConfig, gen: torch.Generator, device):
+    """``lin(fan_in, fan_out)``: the next ``init_linear`` draw, frozen."""
+    return lambda fan_in, fan_out: _frozen(init_linear(
+        gen, fan_in, fan_out, cfg.torch_dtype, device=device))
+
+
+class _Block(nn.Module):
+    """One layer's attention weights and its FFN norm, under the
+    reference's names."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
-        d, hd, f, dt = cfg.d_model, cfg.hd, cfg.d_ff, cfg.torch_dtype
-
-        def lin(fan_in, fan_out):
-            return nn.Parameter(init_linear(gen, fan_in, fan_out, dt,
-                                            device=device),
-                                requires_grad=False)
-
-        def ones(dim):
-            return nn.Parameter(init_rms(dim, dt, device), requires_grad=False)
-
-        self.ln1 = ones(d)
+        d, hd, dt = cfg.d_model, cfg.hd, cfg.torch_dtype
+        lin = _linears(cfg, gen, device)
+        self.ln1 = _frozen(init_rms(d, dt, device))
         self.wq = lin(d, cfg.n_heads * hd)
         self.wk = lin(d, cfg.n_kv * hd)
         self.wv = lin(d, cfg.n_kv * hd)
         self.wo = lin(cfg.n_heads * hd, d)
-        self.ln2 = ones(d)
+        self.ln2 = _frozen(init_rms(d, dt, device))
+
+
+class DenseBlock(_Block):
+    """A dense layer: attention and a SwiGLU or GELU MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__(cfg, gen, device)
+        d, f = cfg.d_model, cfg.d_ff
+        lin = _linears(cfg, gen, device)
         self.w1 = lin(d, f)
         if cfg.mlp == "swiglu":
             self.w3 = lin(d, f)
         self.w2 = lin(f, d)
 
 
+class MoEParams(nn.Module):
+    """The routed FFN's weights (``moe.init_moe_params``): ``router``
+    ``[D, E]``, ``w1``/``w3`` ``[E, D, F]``, ``w2`` ``[E, F, D]``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        for name, t in init_moe_params(gen, cfg.d_model, cfg.d_ff,
+                                       cfg.moe_experts, cfg.torch_dtype,
+                                       device).items():
+            setattr(self, name, _frozen(t))
+
+
+class MoEBlock(_Block):
+    """An MoE layer: attention and the routed FFN under ``moe``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__(cfg, gen, device)
+        self.moe = MoEParams(cfg, gen, device)
+
+
 class LM(nn.Module):
-    """A dense decoder: embedding, ``layers``, final norm and head."""
+    """A decoder: embedding, ``layers`` (dense or MoE blocks), final norm
+    and head."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
@@ -199,7 +230,8 @@ class LM(nn.Module):
         self.lm_head = nn.Parameter(
             init_linear(gen, cfg.d_model, cfg.vocab_padded, dt,
                         device=device), requires_grad=False)
-        self.layers = nn.ModuleList(DenseBlock(cfg, gen, device)
+        block = MoEBlock if cfg.kind == "moe" else DenseBlock
+        self.layers = nn.ModuleList(block(cfg, gen, device)
                                     for _ in range(cfg.n_layers))
 
 
@@ -216,7 +248,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ================================================================= block fwd
 
 
-def _attn_apply(cfg: ModelConfig, lp: DenseBlock, x: torch.Tensor,
+def _attn_apply(cfg: ModelConfig, lp: _Block, x: torch.Tensor,
                 pos0: int):
     b, s, _ = x.shape
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
@@ -232,45 +264,78 @@ def _attn_apply(cfg: ModelConfig, lp: DenseBlock, x: torch.Tensor,
     return x, (k, v)
 
 
-def _ffn_apply(cfg: ModelConfig, lp: DenseBlock, x: torch.Tensor):
+def _ffn_apply(cfg: ModelConfig, lp: _Block, x: torch.Tensor):
+    """The FFN sub-block: ``(x + ffn(ln2(x)), aux)``, aux the MoE
+    load-balancing loss (a 0-d f32 tensor) or None for a dense layer."""
     h = rms_norm(x, lp.ln2, cfg.norm_eps)
+    if cfg.kind == "moe":
+        y, aux = moe_ffn(h, dict(lp.moe.named_parameters()),
+                         top_k=cfg.moe_top_k,
+                         capacity_factor=cfg.capacity_factor)
+        return x + y, aux
     if cfg.mlp == "swiglu":
-        return x + swiglu(h, lp.w1, lp.w3, lp.w2)
-    return x + gelu_mlp(h, lp.w1, lp.w2)
+        return x + swiglu(h, lp.w1, lp.w3, lp.w2), None
+    return x + gelu_mlp(h, lp.w1, lp.w2), None
 
 
 # ==================================================================== forward
 
 
-def _layer(cfg: ModelConfig, lp: DenseBlock, x: torch.Tensor):
+def _layer(cfg: ModelConfig, lp: _Block, x: torch.Tensor):
     x, kv = _attn_apply(cfg, lp, x, 0)
-    return _ffn_apply(cfg, lp, x), kv
+    x, aux = _ffn_apply(cfg, lp, x)
+    return x, aux, kv
+
+
+def _embed_inputs(params: LM, cfg: ModelConfig,
+                  batch: Dict[str, Any]) -> torch.Tensor:
+    """The layer stack's input (``repro/models/lm.py:306-316``): the audio
+    stub's frame ``embeds`` cast to the config's dtype, or the tokens'
+    embedding rows; the vision stub's ``vision_embeds`` prepended."""
+    dev, dt = params.embed.device, cfg.torch_dtype
+    if "embeds" in batch:
+        x = torch.as_tensor(batch["embeds"], device=dev).to(dt)
+    else:
+        # F.embedding, not indexing: its backward sums a repeated token's
+        # rows in a fixed order, where the indexing's CPU backward adds
+        # them with parallel atomics (remat on and off stay bit-equal)
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        x = F.embedding(tokens.long(), params.embed)
+    if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
+        vis = torch.as_tensor(batch["vision_embeds"], device=dev).to(dt)
+        x = torch.cat([vis, x], dim=1)
+    return x
 
 
 def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
             return_cache: bool):
-    """Embedding and every layer: the last hidden state, and the stacked
-    post-RoPE ``(k, v)`` ``[L, B, S, Hkv, D]`` when asked.  With
-    ``cfg.remat`` and autograd recording, each layer is rematerialized in
-    the backward (as the reference's ``jax.checkpoint`` on its scan body):
-    only the layer inputs stay alive between the passes."""
+    """The inputs through every layer: the last hidden state, the layers'
+    aux losses summed in f32 (0 without MoE), and the stacked post-RoPE
+    ``(k, v)`` ``[L, B, S, Hkv, D]`` when asked.  With ``cfg.remat`` and
+    autograd recording, each layer is rematerialized in the backward (as
+    the reference's ``jax.checkpoint`` on its scan body): only the layer
+    inputs stay alive between the passes, and the aux comes out of the
+    checkpointed function so the router's gradient sees it."""
     _check_ported(cfg)
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
-    x = params.embed[tokens.long()]
+    x = _embed_inputs(params, cfg, batch)
     remat = cfg.remat and not return_cache and torch.is_grad_enabled()
-    ks, vs = [], []
+    ks, vs, auxs = [], [], []
     for lp in params.layers:
         if remat:
-            x = checkpoint(lambda h, lp=lp: _layer(cfg, lp, h)[0], x,
-                           use_reentrant=False, preserve_rng_state=False)
-            continue
-        x, (k, v) = _layer(cfg, lp, x)
-        if return_cache:
-            ks.append(k)
-            vs.append(v)
+            x, aux = checkpoint(lambda h, lp=lp: _layer(cfg, lp, h)[:2], x,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux, (k, v) = _layer(cfg, lp, x)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
+        if aux is not None:
+            auxs.append(aux)
+    aux_sum = torch.stack(auxs).sum() if auxs else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
     caches = {"attn_kv": (torch.stack(ks), torch.stack(vs))} \
         if return_cache else None
-    return x, caches
+    return x, aux_sum, caches
 
 
 class _GradCast(torch.autograd.Function):
@@ -291,15 +356,14 @@ class _GradCast(torch.autograd.Function):
 def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
             return_cache: bool = False):
     """Training / prefill forward.  Returns (logits, aux, caches|None):
-    logits ``[B, S, vocab_padded]``, aux 0 (no MoE), caches
+    logits ``[B, S, vocab_padded]`` (S counts a vision prefix), aux the
+    layers' MoE aux losses summed (0-d f32; 0 without MoE), caches
     ``{"attn_kv": (k, v)}`` stacked over layers.  Differentiable: it
     records for autograd where the caller does."""
-    x, caches = _hidden(params, cfg, batch, return_cache)
+    x, aux, caches = _hidden(params, cfg, batch, return_cache)
     x = _GradCast.apply(x, cfg.torch_dtype)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = x @ params.lm_head
-    return logits, torch.zeros((), dtype=torch.float32,
-                               device=logits.device), caches
+    return x @ params.lm_head, aux, caches
 
 
 def _mask_padded(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -314,8 +378,11 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in f32 over the positions whose label is
     ``>= 0`` (``repro/models/lm.py:375-394``): ``(loss, {"nll", "aux",
-    "tokens"})``, with ``loss = nll + 0.01 * aux``."""
+    "tokens"})``, with ``loss = nll + 0.01 * aux``.  A vision prefix's
+    positions carry no labels: their logits are dropped first."""
     logits, aux, _ = forward(params, cfg, batch)
+    if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
+        logits = logits[:, torch.as_tensor(batch["vision_embeds"]).shape[1]:]
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     logits = _mask_padded(logits, cfg).float()
     shift_logits = logits[:, :-1]
@@ -354,7 +421,10 @@ def value_and_grad(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
     named = dict(params.named_parameters())
     with _recording(named.values()):
         loss, metrics = loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, list(named.values()))
+        # an unused leaf (the embedding under the audio stub's frame
+        # embeddings) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True, materialize_grads=True)
     return (loss.detach(), {k: m.detach() for k, m in metrics.items()},
             dict(zip(named, grads)))
 
@@ -431,7 +501,7 @@ def make_prefill_step(cfg: ModelConfig):
 
     @torch.inference_mode()
     def prefill_step(params: LM, batch: Dict[str, Any]):
-        x, caches = _hidden(params, cfg, batch, return_cache=True)
+        x, _, caches = _hidden(params, cfg, batch, return_cache=True)
         # Only the last position's logits are returned, so the final norm
         # (per position) and the head run on that row alone: at full width
         # the whole [B, S, vocab] logits would be 4.2 GB for one row each.
@@ -446,15 +516,17 @@ def make_prefill_step(cfg: ModelConfig):
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None) -> Dict[str, KVCache]:
-    """The stacked per-layer KV cache for one-token decode (capacity
-    ``seq_len``; ``pos`` is ``[L]``)."""
+    """The stacked per-layer KV cache for one-token decode (``pos`` is
+    ``[L]``): capacity ``seq_len``, or ``min(seq_len, window)`` with a
+    sliding window, where decode writes it as a ring buffer."""
     _check_ported(cfg)
-    return {"attn": KVCache.init(batch, seq_len, cfg.n_kv, cfg.hd,
+    cap = min(seq_len, cfg.window) if cfg.window else seq_len
+    return {"attn": KVCache.init(batch, cap, cfg.n_kv, cfg.hd,
                                  cfg.torch_dtype, prefix=(cfg.n_layers,),
                                  device=device)}
 
 
-def _attn_step(cfg: ModelConfig, lp: DenseBlock, cache: KVCache,
+def _attn_step(cfg: ModelConfig, lp: _Block, cache: KVCache,
                x: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
@@ -482,7 +554,7 @@ def make_serve_step(cfg: ModelConfig):
         attn = cache["attn"]
         for i, lp in enumerate(params.layers):
             x = _attn_step(cfg, lp, attn.layer(i), x)
-            x = _ffn_apply(cfg, lp, x)
+            x, _ = _ffn_apply(cfg, lp, x)
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         return _mask_padded(x @ params.lm_head, cfg), cache
 

@@ -1,0 +1,171 @@
+"""Sort-based top-k routed MoE (port of ``repro/models/moe.py``).
+
+Static-shape dispatch routed **per batch row**: each row's token
+assignments are sorted by expert, each expert takes up to ``capacity``
+tokens per row (the surplus is dropped, GShard-style), the expert FFNs run
+as batched products over the capacity buffer, and outputs are combined
+back with the router weights.
+
+The reference vmaps its index math over the batch rows; here the same
+integer math runs with a leading ``[B]`` axis, and every index array
+equals the reference's element for element:
+
+* top-k through a stable descending sort of a totalOrder key: XLA ranks
+  -0.0 below +0.0, ``jax.lax.top_k`` puts the lower expert first on equal
+  logits, ``torch.topk`` promises no order, and bf16 router logits over
+  8-16 experts tie often;
+* ``jnp.argsort(stable=True)`` as ``torch.argsort(stable=True)``; the
+  inverse permutation by a scatter (a permutation has one inverse);
+* the histogram and ``starts`` in integer ops.
+
+Dispatch and combine are gathers on the token axis by advanced indexing,
+never through an index expanded over the model width (at mixtral's width
+and 4 x 4,096 tokens that index alone would be 2 GB).  The capacity buffer
+is laid out ``[E, B, C, D]`` so the expert products are ``torch.bmm`` over
+the experts with no copy; the reference's is ``[B, E, C, D]``, the same
+numbers.  The mesh branches (``constrain`` and the ``ep`` policy) are the
+identity on one card and are not here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["moe_ffn", "init_moe_params", "router_assignment"]
+
+
+def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
+                    n_experts: int, dtype=torch.float32,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """Router ``[D, E]`` and expert weights ``w1``/``w3`` ``[E, D, F]``,
+    ``w2`` ``[E, F, D]``: N(0, fan_in^-1) draws in f32 on the generator's
+    device, cast to ``dtype`` and placed on ``device``."""
+    s_in, s_ff = d_model ** -0.5, d_ff ** -0.5
+
+    def draw(shape, std):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) * std
+        return w.to(device=device or generator.device, dtype=dtype)
+
+    return {"router": draw((d_model, n_experts), s_in),
+            "w1": draw((n_experts, d_model, d_ff), s_in),
+            "w3": draw((n_experts, d_model, d_ff), s_in),
+            "w2": draw((n_experts, d_ff, d_model), s_ff)}
+
+
+_BITS = {torch.float32: (torch.int32, 0x7FFFFFFF),
+         torch.bfloat16: (torch.int16, 0x7FFF)}
+
+
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """An int32 key ordered as IEEE 754 totalOrder of ``x``, the order
+    XLA's sort and ``top_k`` compare floats by (-0.0 below +0.0)."""
+    int_dtype, mask = _BITS[x.dtype]
+    bits = x.view(int_dtype).to(torch.int32)
+    # negative floats: flip the magnitude bits so a larger one sorts lower
+    return bits ^ ((bits >> 31) & mask)
+
+
+def _top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values in
+    totalOrder, ties broken toward the lower index."""
+    _, idx = torch.sort(_total_order_key(logits), dim=-1, descending=True,
+                        stable=True)
+    idx = idx[..., :k]
+    return torch.gather(logits, -1, idx), idx
+
+
+def router_assignment(logits: torch.Tensor, top_k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[..., E]`` router logits -> (weights ``[..., K]`` f32, experts
+    ``[..., K]``): softmax over the selected experts (Mixtral)."""
+    gate_logits, experts = _top_k(logits, top_k)
+    return torch.softmax(gate_logits.float(), dim=-1), experts
+
+
+def _capacity(tokens: int, n_experts: int, top_k: int, factor: float) -> int:
+    cap = int(max(1, -(-tokens * top_k // n_experts)) * factor)
+    return -(-cap // 8) * 8 if cap > 8 else cap
+
+
+def _routing_indices(logits: torch.Tensor, top_k: int, capacity: int):
+    """The index math for rows of ``[..., T, E]`` logits (no data moves).
+
+    Slot ``(e, c)`` holds sorted assignment ``starts[e] + c``, so dispatch
+    is ``x[token_for_slot]`` and combine ``y[slot_for_assign]``.  Returns
+    ``token_for_slot`` ``[..., E*C]``, ``slot_valid`` ``[..., E*C]``,
+    ``slot_for_assign`` ``[..., T*K]``, ``keep`` ``[..., T*K]`` and
+    ``experts`` ``[..., T, K]`` (int64 and bool)."""
+    *lead, t, e = logits.shape
+    dev = logits.device
+    _, experts = _top_k(logits, top_k)                        # [..., T, K]
+    flat_expert = experts.reshape(*lead, t * top_k)
+    order = torch.argsort(flat_expert, dim=-1, stable=True)   # [..., T*K]
+    ranks = torch.arange(t * top_k, device=dev).expand_as(order)
+    inv_order = torch.empty_like(order).scatter_(-1, order, ranks)
+    hist = torch.zeros((*lead, e), dtype=torch.int64, device=dev)
+    hist.scatter_add_(-1, flat_expert, torch.ones_like(flat_expert))
+    starts = torch.cumsum(hist, dim=-1) - hist                # exclusive
+    # dispatch side: slot (e, c) <- sorted position starts[e] + c
+    ec = torch.arange(e * capacity, device=dev)
+    e_of_slot = (ec // capacity).expand(*lead, -1)
+    c_of_slot = ec % capacity
+    sorted_idx = torch.clamp(torch.gather(starts, -1, e_of_slot) + c_of_slot,
+                             max=t * top_k - 1)
+    token_for_slot = torch.gather(order, -1, sorted_idx) // top_k
+    slot_valid = c_of_slot < torch.gather(hist, -1, e_of_slot)
+    # combine side: assignment (t, k) -> its slot (or overflow)
+    pos = inv_order - torch.gather(starts, -1, flat_expert)
+    keep = pos < capacity
+    slot_for_assign = torch.where(keep, flat_expert * capacity + pos,
+                                  torch.zeros_like(pos))
+    return token_for_slot, slot_valid, slot_for_assign, keep, experts
+
+
+def moe_ffn(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
+            top_k: int, capacity_factor: float = 1.25
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: ``[B, S, D]`` -> (out ``[B, S, D]``, aux loss, a 0-d f32 tensor).
+
+    Router logits and the expert products run in ``x``'s dtype; the
+    load-balancing aux and the gate softmax in f32.
+    """
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    capacity = _capacity(s, e, top_k, capacity_factor)
+    logits = x @ params["router"].to(x.dtype)                   # [B, S, E]
+    # load-balancing aux loss per group (= batch row), as in Switch:
+    # E * sum_e f_e(row) p_e(row), averaged over rows; it decomposes over
+    # microbatches
+    probs = torch.softmax(logits.float(), dim=-1)
+    top1 = torch.argmax(logits, dim=-1)                  # the first maximum
+    fe = F.one_hot(top1, e).float().mean(1)                     # [B, E]
+    aux = (e * torch.sum(fe * probs.mean(1), dim=-1)).mean()
+
+    with torch.no_grad():
+        token_for_slot, slot_valid, slot_for_assign, keep, experts = \
+            _routing_indices(logits, top_k, capacity)
+    gate_logits = torch.gather(logits, -1, experts)             # [B, S, K]
+    weights = torch.softmax(gate_logits.float(), dim=-1)
+
+    # dispatch: a gather on the token axis into the [E, B, C, D] buffer
+    rows = torch.arange(b, device=x.device)
+    tok = token_for_slot.reshape(b, e, capacity).permute(1, 0, 2)
+    xe = x[rows[None, :, None], tok]                            # [E, B, C, D]
+    valid = slot_valid.reshape(b, e, capacity).permute(1, 0, 2)
+    xe = xe.masked_fill(~valid[..., None], 0).reshape(e, b * capacity, d)
+
+    w1, w3, w2 = (params[n].to(x.dtype) for n in ("w1", "w3", "w2"))
+    h = F.silu(torch.bmm(xe, w1)) * torch.bmm(xe, w3)           # [E, BC, F]
+    ye = torch.bmm(h, w2).reshape(e, b, capacity, d)
+
+    # combine: each assignment's slot output, weighted over K
+    ya = ye[slot_for_assign // capacity, rows[:, None],
+            slot_for_assign % capacity]                         # [B, S*K, D]
+    wk = (weights * keep.reshape(b, s, top_k)).to(x.dtype)
+    out = torch.bmm(wk.reshape(b * s, 1, top_k),
+                    ya.reshape(b * s, top_k, d)).reshape(b, s, d)
+    return out, aux

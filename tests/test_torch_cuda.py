@@ -526,6 +526,16 @@ def test_flash_attention_at_prefill_length(cuda, dtype):
     _flash_case(cuda, dtype, 1, 4096, 8, 4, 64, 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [5, 7])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_at_scout_and_internvl_groups(cuda, dtype, g, d):
+    """The group sizes the MoE and vision models bring: G = 5 query heads
+    per KV head (llama4-scout, D 128) and G = 7 (internvl2-1b, D 64), each
+    at both head dims, at the prefill length S 4096."""
+    _flash_case(cuda, dtype, 1, 4096, 2, g, d, 0)
+
+
 @pytest.mark.parametrize("offset", [1, 4])
 @pytest.mark.parametrize("operand", ["q", "k", "o"])
 def test_flash_attention_refuses_misaligned_bf16(cuda, offset, operand):
@@ -704,6 +714,73 @@ def test_reduced_lm_flash_matches_blocked_on_card(cuda, dtype):
         assert float(diff.max()) <= 1e-4
     else:
         assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02
+
+
+def _moe_case(device, dtype, seed=0):
+    """``moe_ffn`` (d 256, f 512, 8 experts, top-2, 2 x 256 tokens) from
+    seeded host weights and inputs on ``device``: output, aux, the
+    gradients of x and the four leaves under a fixed cotangent, and the
+    chosen experts (caught at ``_routing_indices``)."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(seed)
+    params = moe.init_moe_params(gen, 256, 512, 8, dtype, "cpu")
+    x = torch.randn(2, 256, 256, generator=gen).to(dtype)
+    w = torch.randn(2, 256, 256, generator=gen).to(dtype)
+    leaves = {k: v.to(device).requires_grad_() for k, v in params.items()}
+    xd = x.to(device).requires_grad_()
+    seen = []
+    real = moe._routing_indices
+
+    def spy(logits, top_k, capacity):
+        out = real(logits, top_k, capacity)
+        seen.append((logits.detach().float().cpu(), out[4].cpu()))
+        return out
+    moe._routing_indices = spy
+    try:
+        out, aux = moe.moe_ffn(xd, leaves, top_k=2, capacity_factor=1.25)
+        grads = torch.autograd.grad((out * w.to(device)).float().sum()
+                                    + 0.01 * aux, [xd, *leaves.values()])
+    finally:
+        moe._routing_indices = real
+    return (out.detach().cpu(), float(aux.detach()),
+            [g.cpu() for g in grads], *seen[0])
+
+
+def test_moe_ffn_on_card_matches_host(cuda):
+    """One ``moe_ffn`` forward and backward on the card against the same
+    function on the host, the same weights and inputs.
+
+    bf16: the router logits of the two sides may round apart, and a token
+    whose top-2 set differs (a routing flip) changes by O(1); the flips
+    are counted (printed) and held under 2 % of the assignments, and
+    every unflipped token's output agrees within 3e-2 (two bf16 ulps at
+    |y| <= 2, the expert products rounding in another order).  f32: the
+    host's logits keep every top-2 margin above 1e-4 (5e-4 at least on
+    these inputs), a hundred times an f32 sum's rounding over 256 terms,
+    so nothing flips; output, aux and every gradient within
+    1e-4 of each leaf's largest magnitude (cuBLAS's f32 sums in another
+    order, TF32 off)."""
+    out_c, aux_c, _, _, exp_c = _moe_case(cuda, torch.bfloat16)
+    out_h, aux_h, _, _, exp_h = _moe_case("cpu", torch.bfloat16)
+    flipped = (exp_c.sort(-1).values != exp_h.sort(-1).values).any(-1)
+    print(f"bf16 routing flips: {int(flipped.sum())} of "
+          f"{flipped.numel()} tokens")
+    assert int(flipped.sum()) <= 0.02 * flipped.numel()
+    ok = ~flipped
+    torch.testing.assert_close(out_c.float()[ok], out_h.float()[ok],
+                               rtol=3e-2, atol=3e-2)
+    assert abs(aux_c - aux_h) <= 1e-2 * abs(aux_h)
+
+    out_c, aux_c, g_c, _, exp_c = _moe_case(cuda, torch.float32)
+    out_h, aux_h, g_h, logits_h, exp_h = _moe_case("cpu", torch.float32)
+    top = logits_h.sort(-1, descending=True).values
+    assert float((top[..., 1] - top[..., 2]).min()) > 1e-4
+    assert torch.equal(exp_c, exp_h)
+    torch.testing.assert_close(out_c, out_h, rtol=1e-4, atol=1e-4)
+    assert abs(aux_c - aux_h) <= 1e-5 * abs(aux_h)
+    for name, a, b in zip(["x", "router", "w1", "w3", "w2"], g_c, g_h):
+        bound = 1e-4 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= bound, name
 
 
 def _check_device_batch(mb, indptr, indices):

@@ -15,7 +15,8 @@ from repro_torch import resolve_device
 from repro_torch.core import HybridConfig, HybridGNNTrainer
 from repro_torch.configs import get_arch
 from repro_torch.graph import GNNConfig, make_dataset
-from repro_torch.models import init_decode_cache, init_params
+from repro_torch.models import (init_decode_cache, init_params,
+                                make_serve_step)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -193,15 +194,34 @@ def test_unknown_agg_impl_and_dtype_rejected():
     ("internvl2-1b", {}, "stub frontends"),
 ], ids=lambda x: x if isinstance(x, str) else "")
 def test_unported_lm_config_raises(arch, kw, item):
-    """The LM slice runs dense full-attention text models; every other
-    kind, window or frontend names its ROADMAP item."""
+    """Only the RWKV and Mamba kinds still raise, naming their ROADMAP
+    item.  The MoE, sliding-window and stub-frontend configs that raised
+    before are ported: each builds and decodes on the CPU, its cache
+    holding ``min(seq_len, window)`` slots (a window of 8 wraps in the 12
+    steps)."""
     cfg = dataclasses.replace(get_arch(arch, reduced=True), **kw)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: LM stack, "
-                                                  f"{item}"):
-        init_params(cfg, gen, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_decode_cache(cfg, 1, 8, "cpu")
+    if cfg.kind in ("rwkv", "zamba"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP: LM stack, "
+                                                      f"{item}"):
+            init_params(cfg, gen, "cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_decode_cache(cfg, 1, 8, "cpu")
+        return
+    model = init_params(cfg, gen, "cpu")
+    seq_len = 12
+    cache = init_decode_cache(cfg, 2, seq_len, "cpu")
+    want = min(seq_len, cfg.window) if cfg.window else seq_len
+    assert cache["attn"].capacity == want
+    step = make_serve_step(cfg)
+    for t in range(seq_len):
+        logits, cache = step(model, cache,
+                             {"tokens": torch.full((2, 1), t + 1)})
+        assert logits.shape == (2, 1, cfg.vocab_padded)
+        assert bool(torch.isfinite(logits).all())
+    assert cache["attn"].pos.tolist() == [seq_len] * cfg.n_layers
+    assert sorted(cache["attn"].slot_pos[0].tolist()) == list(
+        range(seq_len - want, seq_len))
 
 
 def test_serve_default_device_requires_cuda(monkeypatch):

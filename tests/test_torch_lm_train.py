@@ -61,6 +61,17 @@ ATTN_BF16 = dict(rtol=1.6e-2, atol=1.6e-2)
 LEAF_REL = 2e-5
 
 
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    """Two torch threads a test: the suite runs six workers on eight cores,
+    and torch's default of one thread a core oversubscribes them several
+    times over (its waiting threads spin)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def f32(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().float().numpy()
@@ -338,17 +349,32 @@ def test_microbatches_must_divide_the_batch():
         make_train_step(tcfg, opt, 3)(model, state, _batch(tcfg, 4, 16))
 
 
-@pytest.mark.parametrize("impl", ["blocked", "flash"])
-def test_remat_on_and_off_bit_equal(impl):
-    """Rematerializing each layer recomputes the same ops: the loss and
-    every gradient bit for bit."""
-    _, tcfg, _, model = _models("smollm-135m", impl)
-    batch = _batch(tcfg, 2, 64, seed=4)
+REMAT_CASES = [("smollm-135m", "blocked"), ("smollm-135m", "flash"),
+               ("mixtral-8x22b", "blocked"), ("llama4-scout-17b-a16e", "flash"),
+               ("musicgen-medium", "flash"), ("internvl2-1b", "flash")]
+
+
+@pytest.mark.parametrize("arch,impl", REMAT_CASES,
+                         ids=["blocked", "flash"] + [
+                             f"{a}-{i}" for a, i in REMAT_CASES[2:]])
+def test_remat_on_and_off_bit_equal(arch, impl):
+    """Rematerializing each layer recomputes the same ops: the loss, the
+    MoE aux (it leaves the checkpointed layer beside its output, so the
+    router's gradient sees it) and every gradient bit for bit.  The
+    mixtral sequence (128) runs its window's sliced view."""
+    _, tcfg, _, model = _models(arch, impl)
+    if tcfg.frontend == "none":
+        batch = _batch(tcfg, 2, 128 if tcfg.window else 64, seed=4)
+    else:
+        batch = TokenPipeline(tcfg, 2, 64, seed=4, depth=0,
+                              device="cpu")._make_host_batch(0)
     out = {}
     for remat in (False, True):
         cfg = dataclasses.replace(tcfg, remat=remat)
         out[remat] = value_and_grad(model, cfg, batch)
     assert torch.equal(out[False][0], out[True][0])
+    assert torch.equal(out[False][1]["aux"], out[True][1]["aux"])
+    assert (float(out[True][1]["aux"]) > 0) == (tcfg.kind == "moe")
     for k, g in out[False][2].items():
         assert torch.equal(g, out[True][2][k]), k
 
