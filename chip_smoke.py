@@ -203,6 +203,33 @@ Phases, each printing one JSON line:
                and internvl2-1b at full width and depth, 1 x 4096 from
                TokenPipeline: one loss_fn through K8 and through blocked,
                3 AdamW steps with remat, K8 2 x layers a step
+  lm_ssm       RWKV-6 and Mamba-2 blocks at published widths (bf16, random
+               weights from a seed): (a) rwkv6-1.6b at full depth: a 4 x
+               4096 whole-sequence prefill (the chunked WKV, 32 chunks a
+               layer; ms, tok/s, peak memory), launch/serve.generate with a
+               64-token prompt stepped through the serve step and 32
+               greedy tokens (ms a token), the prompt and those tokens
+               teacher-forced through the serve step against one forward:
+               in bf16 within twice the bf16 forward's own distance from
+               f32, and, the weights widened, in f32 over the first layers
+               (random weights at full depth amplify rounding; the
+               full-depth f32 reading is reported); the chunked WKV against the
+               sequential one at [4, 4096, 32, 64] (1e-3), each timed, and
+               the ragged route (4,000 tokens: the scan) timed; (b)
+               zamba2-7b at full depth (81 Mamba layers, 13 sites of the
+               shared attention, attn_impl="flash"): K8 alone at [4, 4096,
+               32, 1, 112] against its plain version (f32 2e-5, bf16 1e-2)
+               and timed beside SDPA, then (a)'s serving readings with 13
+               K8 launches a prefill, and flash vs blocked last logits;
+               (c) training, TokenPipeline x 4096, remat: rwkv6-1.6b at full
+               depth, 1 x 4096, AdamW, 3 steps; zamba2-7b at depth 7 (one
+               site of 6 Mamba layers and the shared block, one tail
+               layer), 2 x 4096 in 2 microbatches, SGD with momentum, 3
+               steps, K8 4 a step (the site's forward and its recompute,
+               each microbatch); finite losses, ms a step, tok/s, peak
+               memory; (d) card vs host at full width, 1 x 512: rwkv at
+               depth 1, zamba as one site of one Mamba layer and the
+               shared block; the loss and every gradient leaf
 
 The kernels phase also holds K8 (flash attention) against its plain version
 at the prefill's shape in f32 (the FMA body) and bf16 (the tensor-core
@@ -3041,6 +3068,420 @@ def phase_lm_moe(dev: torch.device, peak_bw: float) -> dict:
     return res
 
 
+# The RWKV / Mamba phase (lm_ssm): rwkv6-1.6b and zamba2-7b at published
+# widths, random weights from a seed; serving at full depth, training with
+# zamba's depth cut.
+SSM_RWKV, SSM_ZAMBA = "rwkv6-1.6b", "zamba2-7b"
+SSM_STEP_PROMPT, SSM_GEN = 64, 32      # serve.generate: stepped prompt, greedy
+SSM_WARMUP_PROMPT = 512
+SSM_RAGGED = 4000                      # not a multiple of the 128-token chunk
+SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4096, 3
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_MB = 7, 2, 2
+ZAMBA_LR, ZAMBA_MOMENTUM = 1e-3, 0.9
+SSM_HOST_SEQ = 512
+# Chunked against sequential WKV in f32 (TF32 off): the reference's own
+# bound for the two routes (tests/test_models_consistency.py), rtol = atol.
+WKV_TOL = 1e-3
+# Bounds from a CPU rehearsal (scripts/ssm_rehearsal.py: the published
+# depths with the width cut, rwkv6 at d 1,024, 16 heads of 64, d_ff 3,584,
+# zamba2 at d 896, 8 heads of 112, d_ff 3,584, vocab 8,192; or the
+# published width with the depth cut; random weights):
+# * Random weights at full depth amplify rounding: each model in bf16 is
+#   0.069-0.37 (mean) from the same weights in f32 (`chain`; the
+#   reference's rwkv6 too, 0.46, `reference`), RWKV most at the first
+#   positions.  So the bf16 serving chain (the prompt and the generated
+#   tokens teacher-forced through the serve step) is held against the bf16
+#   forward within SSM_NOISE_RATIO times the bf16 forward's own distance
+#   from the f32 forward, max and mean, both measured in the run (the
+#   rehearsal's ratios: zamba 1.02-1.08 / 1.04-1.05, rwkv 0.07-0.35 /
+#   0.12-0.22).
+# * In f32 the same amplification grows with depth (`depth`): rwkv6 at full
+#   width, max 3.9e-5, 6.8e-5, 2.0e-4 and 3.2e-3 at 1, 2, 4 and 8 layers;
+#   on the card at all 24 it read 0.88 (NVIDIA H100 80GB HBM3, 700 W).  So
+#   the f32 check runs on the model's first layers (SSM_F32_DEPTH: rwkv's
+#   first 4; zamba's first site, 6 Mamba layers and the shared block), and
+#   the full depth's f32 reading is reported, not bounded.  The rehearsal
+#   read max 2.0e-4 / 6.6e-4 and mean 7.1e-6 / 1.3e-5 for rwkv (seeds 0,
+#   1) and 3.7e-5 / 3.4e-5 and 4.0e-6 for zamba's site (d 1,792, 16 heads
+#   of 112): SSM_F32_CHAIN leaves 7.6x / 7.5x (rwkv) and 27x / 12x (zamba,
+#   twice the width on the card).
+# * zamba's bf16 prefill through K8 against the blocked route (which
+#   rounds p to bf16 before p @ v), 2 x 1,024 tokens (`flash`): max
+#   0.19-0.22, mean 0.038-0.041, each route 0.068-0.080 (mean) from f32:
+#   ZAMBA_BF16_MAX / MEAN leave 2.7x and 2.4x.
+# * Card against host in f32 at depth 1, 1 x 512 (`host`): f32 against f64
+#   differed by at most 1.9e-6 in the loss and 1.1e-4 (relative L2,
+#   Mamba's A_log; RWKV's u 2.5e-5) in a gradient leaf; two f32 routes
+#   differ by about sqrt(2) of that, twice at 4x the width:
+#   SSM_HOST_LOSS_TOL / GRAD_REL leave 18x and 3.2x.  (In bf16 RWKV's u
+#   moved 20 % against f32: the check runs in f32.)
+SSM_NOISE_RATIO = 2.0
+SSM_F32_DEPTH = {"rwkv": 4, "zamba": 1}          # layers; zamba: sites
+SSM_F32_CHAIN = {"rwkv": (5e-3, 1e-4), "zamba": (1e-3, 5e-5)}  # max, mean
+ZAMBA_BF16_MAX, ZAMBA_BF16_MEAN = 0.6, 0.1
+SSM_HOST_LOSS_TOL, SSM_HOST_GRAD_REL = 1e-4, 1e-3
+
+
+def ssm_params_expected(cfg) -> int:
+    """The parameter count of an RWKV or zamba config from its widths."""
+    d, f = cfg.d_model, cfg.d_ff
+    top = 2 * cfg.vocab_padded * d + d
+    if cfg.kind == "rwkv":
+        # 5 d x d products and c_r, c_k / c_v, the decay LoRA (2 x 64 d),
+        # and 12 vectors of d (mix 5, mix_c 2, w0, u, ln_g, ln1, ln2)
+        return top + cfg.n_layers * (6 * d * d + 2 * d * f + 140 * d)
+    di, n = 2 * d, cfg.ssm_state
+    h = di // cfg.ssm_head_dim
+    conv = di + 2 * n
+    mamba = (d * (2 * di + 2 * n + h) + 5 * conv + 3 * h + di + di * d
+             + d)
+    shared = d * cfg.hd * 2 * (cfg.n_heads + cfg.n_kv) + 2 * d + 3 * d * f
+    sites, per, tail = cfg.zamba_structure()
+    return top + (sites * per + tail) * mamba + shared
+
+
+def teacher_forced(model, cfg, seq: torch.Tensor, dev) -> torch.Tensor:
+    """``seq`` [B, T] through ``make_serve_step`` from an empty cache, one
+    token a step: the logits of every step, ``[B, T, vocab_padded]``."""
+    from repro_torch.models import init_decode_cache, make_serve_step
+    step = make_serve_step(cfg)
+    cache = init_decode_cache(cfg, seq.shape[0], seq.shape[1], dev)
+    return torch.cat([step(model, cache, {"tokens": seq[:, t:t + 1]})[0]
+                      for t in range(seq.shape[1])], 1)
+
+
+def logit_diff(a: torch.Tensor, b: torch.Tensor, vocab: int) -> dict:
+    d = (a[..., :vocab].float() - b[..., :vocab].float()).abs()
+    return dict(max_abs=float(d.max()), mean_abs=float(d.mean()))
+
+
+def first_layers(model, cfg, n: int):
+    """A view of ``model`` (its own parameters, no copy) and its config
+    with the first ``n`` layers only (zamba: the first ``n`` sites and the
+    shared block, no tail)."""
+    from repro_torch.models import LM
+    sub = LM.__new__(LM)
+    torch.nn.Module.__init__(sub)
+    sub.embed, sub.final_norm = model.embed, model.final_norm
+    sub.lm_head = model.lm_head
+    sub.layers = torch.nn.ModuleList(list(model.layers)[:n])
+    if cfg.kind == "zamba":
+        sub.shared_attn = model.shared_attn
+        n *= cfg.mamba_per_attn
+    return sub, dataclasses.replace(cfg, n_layers=n)
+
+
+def ssm_serve(model, cfg, dev, label: str) -> dict:
+    """(a) / (b): a whole-sequence prefill of 4 x 4,096 tokens (after a
+    4 x 512 warm-up), its K8 launches (one a zamba site with flash, none
+    for RWKV) and caches; zamba's flash prefill against the blocked one;
+    then ``launch/serve.generate``: a 64-token prompt stepped through the
+    serve step and 32 greedy tokens; then the prompt and the generated
+    tokens teacher-forced through the serve step against one ``forward``
+    over them, in bf16 and, the model widened in place, in f32."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, make_prefill_step
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)).to(dev)
+    prefill = make_prefill_step(cfg)
+    prefill(model, {"tokens": prompts[:, :SSM_WARMUP_PROMPT]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, {"tokens": prompts})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    k8 = ops.kernel_launches()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    sites = cfg.zamba_structure()[0] if cfg.kind == "zamba" else 0
+    k8_want = sites if cfg.attn_impl == "flash" else 0
+    check(k8 == k8_want, f"{label}: K8 {k8} in a prefill, {k8_want} "
+          f"derived")
+    check(logits.shape == (SERVE_BATCH, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), f"{label}: prefill logits")
+    if cfg.kind == "zamba":
+        check(caches["attn_kv"][0].shape == (sites, SERVE_BATCH, SERVE_PROMPT,
+                                             cfg.n_kv, cfg.hd),
+              f"{label}: per-site K/V")
+    else:
+        check(caches is None, f"{label}: RWKV's prefill hands on no cache")
+    del caches
+    res = dict(layers=cfg.n_layers, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+               prefill_ms=t_prefill * 1e3,
+               prefill_tok_s=SERVE_BATCH * SERVE_PROMPT / t_prefill,
+               prefill_peak_mem_bytes=peak, k8_launches=k8)
+    if cfg.attn_impl == "flash":
+        ops.reset_kernel_launches()
+        blocked, _ = make_prefill_step(dataclasses.replace(
+            cfg, attn_impl="blocked"))(model, {"tokens": prompts})
+        check(ops.kernel_launches()["flash_attention"] == 0,
+              f"{label}: the blocked prefill ran K8")
+        vs = logit_diff(logits, blocked, cfg.vocab)
+        check(vs["max_abs"] <= ZAMBA_BF16_MAX
+              and vs["mean_abs"] <= ZAMBA_BF16_MEAN,
+              f"{label}: flash vs blocked last logits {vs}")
+        res["vs_blocked"] = dict(vs, max_tol=ZAMBA_BF16_MAX,
+                                 mean_tol=ZAMBA_BF16_MEAN)
+        del blocked
+    del logits
+
+    step_prompts = prompts[:, :SSM_STEP_PROMPT].cpu().numpy()
+    n0 = ops.kernel_launches()["flash_attention"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = serve.generate(model, cfg, step_prompts, SSM_GEN, 0.0,
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    check(ops.kernel_launches()["flash_attention"] == n0,
+          f"{label}: the serve step ran K8")
+    toks = run["tokens"]
+    check(toks.shape == (SERVE_BATCH, SSM_GEN) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"{label}: generated tokens")
+    res.update(step_prompt=SSM_STEP_PROMPT, gen=SSM_GEN,
+               stepped_prompt_ms_per_token=run["prefill_s"] * 1e3
+               / SSM_STEP_PROMPT,
+               decode_ms_per_token=run["decode_s"] * 1e3 / SSM_GEN,
+               decode_tok_s=SERVE_BATCH * SSM_GEN / run["decode_s"],
+               decode_peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               first_tokens=toks[0, :8].tolist())
+
+    # the chain against the forward, in bf16 and then in f32
+    seq = torch.cat([prompts[:, :SSM_STEP_PROMPT],
+                     torch.from_numpy(toks).to(dev)], 1)
+    chain16 = teacher_forced(model, cfg, seq, dev)
+    with torch.inference_mode():
+        whole16, _, _ = forward(model, cfg, {"tokens": seq})
+    check(bool(torch.isfinite(chain16).all())
+          and bool(torch.isfinite(whole16).all()), f"{label}: bf16 chain")
+    greedy_agree = float((chain16[:, SSM_STEP_PROMPT - 1:-1, :cfg.vocab]
+                          .argmax(-1) == seq[:, SSM_STEP_PROMPT:])
+                         .float().mean())
+    model.float()                      # every bf16 leaf widened exactly
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    chain32 = teacher_forced(model, cfg32, seq, dev)
+    with torch.inference_mode():
+        whole32, _, _ = forward(model, cfg32, {"tokens": seq})
+    sub, sub_cfg = first_layers(model, cfg32, SSM_F32_DEPTH[cfg.kind])
+    chain_sub = teacher_forced(sub, sub_cfg, seq, dev)
+    with torch.inference_mode():
+        whole_sub, _, _ = forward(sub, sub_cfg, {"tokens": seq})
+    v = cfg.vocab
+    bf16 = logit_diff(chain16, whole16, v)
+    noise = logit_diff(whole16, whole32, v)
+    f32_sub = logit_diff(chain_sub, whole_sub, v)
+    check(bf16["max_abs"] <= SSM_NOISE_RATIO * noise["max_abs"]
+          and bf16["mean_abs"] <= SSM_NOISE_RATIO * noise["mean_abs"],
+          f"{label}: bf16 chain vs forward {bf16}, the bf16 forward "
+          f"{noise} from f32")
+    max_tol, mean_tol = SSM_F32_CHAIN[cfg.kind]
+    check(f32_sub["max_abs"] <= max_tol and f32_sub["mean_abs"] <= mean_tol,
+          f"{label}: f32 chain vs forward at {sub_cfg.n_layers} layers "
+          f"{f32_sub}")
+    res["vs_forward"] = dict(tokens=seq.shape[1], bf16=bf16,
+                             bf16_forward_vs_f32=noise,
+                             noise_ratio=SSM_NOISE_RATIO,
+                             f32_full_depth=logit_diff(chain32, whole32, v),
+                             f32_layers=sub_cfg.n_layers, f32=f32_sub,
+                             f32_tol=[max_tol, mean_tol],
+                             greedy_agree=greedy_agree)
+    return res
+
+
+def wkv_check(dev) -> dict:
+    """(a) the chunked WKV against the sequential one at the prefill's
+    shape [4, 4096, 32, 64] (decays as the model's init draws them:
+    exp(-exp(w)), w around w0 = -4), each timed once after a warm-up; and
+    the ragged route (4,000 tokens: the scan) timed."""
+    from repro_torch.models import rwkv
+    b, t, h, k = SERVE_BATCH, SERVE_PROMPT, 32, 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    r, kk, v = randn(b, t, h, k), randn(b, t, h, k), randn(b, t, h, k)
+    w = torch.exp(-torch.exp(-4.0 + randn(b, t, h, k)))
+    u = 0.1 * randn(h, k)
+    s0 = torch.zeros(b, h, k, k, device=dev)
+
+    def timed_once(fn, n: int):
+        fn(n // 8)                                  # warm-up, 1/8 the length
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(n)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode():
+        (yc, sc), chunked_ms = timed_once(lambda n: rwkv._wkv_chunked(
+            r[:, :n], kk[:, :n], v[:, :n], w[:, :n], u, s0), t)
+        (ys, ss), scan_ms = timed_once(lambda n: rwkv._wkv_scan(
+            r[:, :n], kk[:, :n], v[:, :n], w[:, :n], u, s0), t)
+        _, ragged_ms = timed_once(lambda n: rwkv._wkv_chunked(
+            r[:, :n], kk[:, :n], v[:, :n], w[:, :n], u, s0), SSM_RAGGED)
+    err_y = close(yc, ys, WKV_TOL, WKV_TOL, "(a) chunked vs sequential y")
+    err_s = close(sc, ss, WKV_TOL, WKV_TOL, "(a) chunked vs sequential s")
+    return dict(shape=[b, t, h, k], tol=WKV_TOL, max_abs_err_y=err_y,
+                max_abs_err_state=err_s, max_abs_y=float(ys.abs().max()),
+                chunked_ms=chunked_ms, scan_ms=scan_ms,
+                ragged_tokens=SSM_RAGGED, ragged_scan_ms=ragged_ms)
+
+
+def ssm_train(cfg, dev, batch: int, microbatches: int, opt,
+              label: str) -> dict:
+    """(c) ``SSM_TRAIN_STEPS`` steps of ``TokenPipeline`` batch x 4,096
+    through ``make_train_step`` with remat: finite losses, ms per step,
+    tok/s, peak memory, and K8 a step against the count the remat
+    structure implies (a zamba site's forward and its recompute, each
+    microbatch)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, make_train_step
+    check(cfg.remat, f"{label} trains with remat")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == ssm_params_expected(cfg), f"{label}: {n_params} params")
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, opt, microbatches)
+    pipe = TokenPipeline(cfg, batch, SSM_TRAIN_SEQ, seed=0, depth=2,
+                         device=dev)
+    sites = cfg.zamba_structure()[0] if cfg.kind == "zamba" else 0
+    per_step = 2 * sites * microbatches if cfg.attn_impl == "flash" else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times, k8 = [], [], []
+    t_prev = time.perf_counter()
+    for b in pipe.batches(SSM_TRAIN_STEPS):
+        n0 = ops.kernel_launches()["flash_attention"]
+        model, state, m = step(model, state, b)
+        losses.append(float(m["loss"]))              # waits for the step
+        now = time.perf_counter()
+        times.append((now - t_prev) * 1e3)
+        t_prev = now
+        k8.append(ops.kernel_launches()["flash_attention"] - n0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses), f"{label} losses {losses}")
+    check(k8 == [per_step] * SSM_TRAIN_STEPS, f"{label}: K8 a step {k8}, "
+          f"{per_step} derived")
+    del model, state, step
+    torch.cuda.empty_cache()
+    med = statistics.median(times[1:])
+    return dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+                batch=batch, seq=SSM_TRAIN_SEQ, microbatches=microbatches,
+                steps=SSM_TRAIN_STEPS, losses=losses, ms_per_step=times,
+                median_ms=med, tok_s=batch * SSM_TRAIN_SEQ / (med / 1e3),
+                peak_mem_bytes=peak, k8_per_step=k8, k8_derived=per_step,
+                k8_launches=sum(k8))
+
+
+def ssm_vs_host(cfg, dev, label: str) -> dict:
+    """(d) the card against the host in f32 from the same weights (drawn
+    on the host, copied over), 1 x 512 tokens: the loss and every gradient
+    leaf (relative L2) within SSM_HOST_LOSS_TOL / SSM_HOST_GRAD_REL."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, value_and_grad
+    from repro_torch.models.convert import (export_params,
+                                            load_reference_params)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    load_reference_params(card, export_params(host))
+    hb = next(iter(TokenPipeline(cfg, 1, SSM_HOST_SEQ, seed=3, depth=0,
+                                 device="cpu").batches(1)))
+    ops.reset_kernel_launches()
+    c_loss, _, c_grads = value_and_grad(card, cfg, hb)
+    k8 = ops.kernel_launches()["flash_attention"]
+    t0 = time.perf_counter()
+    h_loss, _, h_grads = value_and_grad(host, cfg, hb)
+    host_s = time.perf_counter() - t0
+    rel = {k: float((c_grads[k].cpu().float() - g.float()).norm()
+                    / g.float().norm().clamp(min=1e-30))
+           for k, g in h_grads.items()}
+    dl = abs(float(c_loss) - float(h_loss))
+    check(math.isfinite(float(c_loss)) and dl <= SSM_HOST_LOSS_TOL,
+          f"{label} card vs host loss {dl}")
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= SSM_HOST_GRAD_REL,
+          f"{label} gradient {worst} differs by {rel[worst]}")
+    del host, card, c_grads, h_grads
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=cfg.n_layers, seq=SSM_HOST_SEQ,
+                dtype=cfg.dtype, loss_card=float(c_loss),
+                loss_host=float(h_loss), loss_diff=dl,
+                loss_tol=SSM_HOST_LOSS_TOL, worst_leaf=worst,
+                worst_rel_l2=rel[worst], grad_tol=SSM_HOST_GRAD_REL,
+                leaves=len(rel), k8_launches=k8, host_s=host_s)
+
+
+def phase_lm_ssm(dev: torch.device, peak_bw: float) -> dict:
+    """RWKV-6 and Mamba-2 blocks on the card (see the module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, sgd
+    t_phase = time.perf_counter()
+    res: dict = {"part_s": {}}
+
+    def lap(part: str) -> None:
+        res["part_s"][part] = time.perf_counter() - t_phase - sum(
+            res["part_s"].values())
+
+    # (a) rwkv6-1.6b serving at full width and depth, and the WKV routes
+    cfg = get_arch(SSM_RWKV)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == ssm_params_expected(cfg), f"(a) {n_params} params")
+    res["rwkv_serve"] = dict(arch=cfg.name, params=n_params,
+                             **ssm_serve(model, cfg, dev, "(a)"),
+                             wkv=wkv_check(dev))
+    del model
+    torch.cuda.empty_cache()
+    lap("a")
+
+    # (b) zamba2-7b serving at full width and depth through K8 (D 112),
+    # and K8 alone at its prefill shape
+    cfg = dataclasses.replace(get_arch(SSM_ZAMBA), attn_impl="flash")
+    # timed by CUDA events, as the other late K8 readings
+    zamba_k8 = k8_at(dev, peak_bw, (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv,
+                                    cfg.n_heads // cfg.n_kv, cfg.hd),
+                     cfg.q_block, (torch.float32, torch.bfloat16),
+                     event_timed)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == ssm_params_expected(cfg), f"(b) {n_params} params")
+    zamba = dict(arch=cfg.name, params=n_params,
+                 weight_bytes=sum(nbytes(p) for p in model.parameters()),
+                 **ssm_serve(model, cfg, dev, "(b)"))
+    zamba["k8"] = {k: v for k, v in zamba_k8.items() if k != "name"}
+    res["zamba_serve"] = zamba
+    del model
+    torch.cuda.empty_cache()
+    lap("b")
+
+    # (c) training: rwkv6-1.6b at full depth, zamba2-7b at depth 7
+    res["rwkv_train"] = ssm_train(get_arch(SSM_RWKV), dev, 1, 1,
+                                  adamw(TRAIN_LR), "(c) rwkv")
+    res["zamba_train"] = ssm_train(
+        dataclasses.replace(cfg, n_layers=ZAMBA_TRAIN_LAYERS), dev,
+        ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_MB,
+        sgd(ZAMBA_LR, momentum=ZAMBA_MOMENTUM), "(c) zamba")
+    lap("c")
+
+    # (d) card against host at full width in f32: rwkv at depth 1; zamba
+    # as one site of one Mamba layer and the shared block
+    res["rwkv_vs_host"] = ssm_vs_host(dataclasses.replace(
+        get_arch(SSM_RWKV), n_layers=1, dtype="float32"), dev, "(d) rwkv")
+    res["zamba_vs_host"] = ssm_vs_host(dataclasses.replace(
+        cfg, n_layers=1, mamba_per_attn=1, dtype="float32"), dev,
+        "(d) zamba")
+    lap("d")
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["k8_launches"] = dict(
+        zamba_prefill=zamba["k8_launches"],
+        zamba_train=res["zamba_train"]["k8_launches"])
+    emit("lm_ssm", **res)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -3157,6 +3598,8 @@ def main() -> int:
                                PLATFORMS[platform].mem_bw_gbps * 1e9)
     moe_res = phase_lm_moe(torch.device("cuda", 0),
                            PLATFORMS[platform].mem_bw_gbps * 1e9)
+    ssm_res = phase_lm_ssm(torch.device("cuda", 0),
+                           PLATFORMS[platform].mem_bw_gbps * 1e9)
 
     launches = dict(train["launches"])
     launches["segment_sum"] = seg_launches["segment_sum"]
@@ -3165,22 +3608,29 @@ def main() -> int:
     # baseline), so the train run's count of it stands
     launches["cache_combine_pipelined"] = \
         shard_launches["cache_combine_pipelined"]
-    # K8's paths: the serve phase's prefill, the lm_train slice, and in
-    # lm_moe llama4-scout's prefill and the two frontends' training steps
+    # K8's paths: the serve phase's prefill, the lm_train slice, in lm_moe
+    # llama4-scout's prefill and the two frontends' training steps, and in
+    # lm_ssm zamba2-7b's prefill and training steps (D 112)
     k8_paths = dict(serve=serve_res["k8_launches"],
                     lm_train=train_res["slice"]["launches"]["flash_attention"],
                     lm_moe_scout_prefill=moe_res["k8_launches"][
                         "scout_prefill"],
-                    lm_moe_frontends=moe_res["k8_launches"]["frontends"])
+                    lm_moe_frontends=moe_res["k8_launches"]["frontends"],
+                    lm_ssm_zamba_prefill=ssm_res["k8_launches"][
+                        "zamba_prefill"],
+                    lm_ssm_zamba_train=ssm_res["k8_launches"]["zamba_train"])
     launches["flash_attention"] = sum(k8_paths.values())
+    k8_keys = ("shape", "max_abs_err", "ms", "call_ms", "plain_ms",
+               "library_ms", "bound_ms", "bound_by", "tflops",
+               "bound_fraction", "timing")
     scout_k8 = moe_res["scout_serve"]["k8"]
+    zamba_k8 = ssm_res["zamba_serve"]["k8"]
     kern["flash_attention"].update(launches_by_path=k8_paths, **{
         key: train_res["grad"][key] for key in train_res["grad"]
         if key.startswith("train_")}, **{
-        f"scout_{key}": scout_k8[key] for key in (
-            "shape", "max_abs_err", "ms", "call_ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "tflops",
-            "bound_fraction", "timing")})
+        f"scout_{key}": scout_k8[key] for key in k8_keys}, **{
+        f"zamba_{key}": zamba_k8[key] for key in k8_keys + (
+            "max_abs_err_by_dtype",)})
     kernels = []
     for name in ops.KERNELS:
         k = kern[name]
@@ -3197,7 +3647,8 @@ def main() -> int:
                                        "cache_less", "peer_gather")
                if key in k},
             **{key: k[key] for key in k if key.startswith(
-                ("train_", "scout_")) or key == "launches_by_path"}))
+                ("train_", "scout_", "zamba_"))
+               or key == "launches_by_path"}))
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,12 +26,17 @@
 // query heads of each position sit in one CTA and share every K/V tile it
 // stages (for any G: with G = 3 a CTA may start mid-position).  The tile
 // loop stops at the last 64-key tile that touches the CTA's last position
-// (causal).  D is a template parameter (16, 32, 64, 128).  Two bodies:
+// (causal).  D is a template parameter (16, 32, 64, 112, 128; 112 is
+// zamba2-7b's 3584 / 32).  Two bodies:
 //
 // bf16 (the serving path): FlashAttention-2's structure on tensor cores.
 //   128 threads = 4 warps; a warp owns 32 q rows (two m16 tiles) for
-//   D <= 64 and 16 at D = 128, so a CTA holds Br = 128 or 64 rows and the
-//   O and S accumulators fit in registers.  The Q tile is copied once with
+//   D <= 64 and 16 at D = 112 and 128, so a CTA holds Br = 128 or 64 rows
+//   and the O and S accumulators fit in registers.  Every ldmatrix.x4
+//   covers one k16 step of d (Q's A-fragments, K's B-fragments of two n8
+//   key tiles) or two n8 output tiles (V's), so D needs only be a multiple
+//   of 16: at D = 112 there are 7 k16 steps (an odd count is fine) and 7
+//   pairs of output tiles.  The Q tile is copied once with
 //   cp.async into shared memory (bf16, rows padded by 16 B so the 8 row
 //   addresses of each ldmatrix hit distinct banks) and moved into
 //   registers as mma A-fragments (ldmatrix.x4) for the whole KV loop.  K
@@ -55,8 +60,10 @@
 // f32 (tests and the card check, held to 2e-5, so exact f32 and no TF32):
 //   256 threads form a 16 x 16 grid over 64 q rows: thread (ty, tx) owns
 //   rows 4ty..4ty+3, the scores of keys tx + 16k of the tile, and output
-//   columns [tx * D/16, (tx+1) * D/16).  K and V are f32 tiles in shared
-//   memory (rows padded to D + 4 floats: conflict-free float4 reads).  Per
+//   columns [tx * D/16, (tx+1) * D/16) (7 at D = 112, read as scalars: the
+//   16 threads of a row hit distinct banks for any odd D/16).  K and V are
+//   f32 tiles in shared memory (rows padded to D + 4 floats: conflict-free
+//   float4 reads of Q K^T's d steps).  Per
 //   tile: S = Q K^T with fp32 FMAs, scale and mask, the row max and sum
 //   over the 16 threads of a row (shuffles), P written transposed to
 //   shared memory, then acc = alpha * acc + P V.
@@ -295,8 +302,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KD = D / 16;             // k16 steps of Q K^T over d
   constexpr int NS = kKeys / 8;          // n8 score tiles of a key tile
   constexpr int NO = D / 8;              // n8 output tiles
+  static_assert(D % 16 == 0, "whole k16 steps and n8 output-tile pairs");
   static_assert(kKeys * kChunks % kTcThreads == 0 &&
-                kBr * kChunks % kTcThreads == 0, "whole copy rounds");
+                kBr * kChunks % kTcThreads == 0 &&
+                16 * MT * kChunks % 32 == 0, "whole copy rounds");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // [kBr][kLd]
   bf16* ring = qs + kBr * kLd;               // [2][K, V][kKeys][kLd]
@@ -583,6 +592,9 @@ int launch(bool is_bf16, const void* q, const void* k, const void* v,
     case 64:
       return static_cast<int>(
           launch_d<64>(is_bf16, q, k, v, o, b, s, hkv, g, pos0, st));
+    case 112:
+      return static_cast<int>(
+          launch_d<112>(is_bf16, q, k, v, o, b, s, hkv, g, pos0, st));
     case 128:
       return static_cast<int>(
           launch_d<128>(is_bf16, q, k, v, o, b, s, hkv, g, pos0, st));
@@ -594,7 +606,7 @@ int launch(bool is_bf16, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: [b, s, hkv, g, d]; k, v: [b, s, hkv, d]; o: like q.  d in {16, 32, 64,
-// 128}; contiguous, every base pointer 16-byte aligned.
+// 112, 128}; contiguous, every base pointer 16-byte aligned.
 REPRO_API int flash_attention_f32(const void* q, const void* k, const void* v,
                                   void* o, int64_t b, int64_t s, int64_t hkv,
                                   int64_t g, int d, int64_t pos0,

@@ -457,7 +457,7 @@ def fused_gnn_update(x_self: torch.Tensor, x_nbr: torch.Tensor,
 
 # ---------------------------------------------------------- flash attention
 
-FLASH_HEAD_DIMS = (16, 32, 64, 128)   # K8's template instances
+FLASH_HEAD_DIMS = (16, 32, 64, 112, 128)   # K8's template instances
 FLASH_MAX_TILE = 512                  # the reference's q_block / kv_tile cap
 
 

@@ -1,6 +1,7 @@
-"""The LM stack of the port (``repro/models``): the config, the dense and
-MoE blocks (``moe.py``), the training forward, loss and step, prefill and
-one-token decode, and the weight converter."""
+"""The LM stack of the port (``repro/models``): the config, the dense,
+MoE (``moe.py``), RWKV-6 (``rwkv.py``) and Mamba-2 (``ssm.py``) blocks,
+the training forward, loss and step, prefill and one-token decode, and
+the weight converter."""
 from .layers import KVCache, prefill_into_cache
 from .lm import (LM, ModelConfig, active_param_count, forward,
                  init_decode_cache, init_params, loss_fn, make_prefill_step,

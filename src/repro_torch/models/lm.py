@@ -1,32 +1,40 @@
 """The LM substrate (port of ``repro/models/lm.py``): one ``ModelConfig``
-covers the ten architectures; the dense and MoE kinds train and serve.
+covers the ten architectures, and all four kinds train and serve.
 
 Ported: the config (fields, defaults, derived sizes), the parameter
-counts, and for ``kind="dense"`` and ``kind="moe"`` (``models/moe.py``),
-with full or sliding-window attention (``window > 0``: the blocked route,
-a ring-buffer decode cache) and the stub frontends (``audio_stub`` frame
-embeddings, ``vision_stub`` embeddings prepended to the tokens):
-``init_params``, ``forward`` (the training forward: logits, the layers'
-summed MoE aux loss, the per-layer K/V when asked), ``loss_fn``,
-``value_and_grad``, ``make_train_step`` (microbatched gradient
-accumulation), ``make_prefill_step``, ``init_decode_cache`` and
-``make_serve_step`` (one-token decode against the stacked cache).  The
-``rwkv`` and ``zamba`` kinds raise ``NotImplementedError`` naming their
-ROADMAP item.
+counts, and for every kind — ``dense``, ``moe`` (``models/moe.py``),
+``rwkv`` (``models/rwkv.py``) and ``zamba`` (Mamba-2 layers,
+``models/ssm.py``, with one shared attention block after every
+``mamba_per_attn`` of them) — with full or sliding-window attention
+(``window > 0``: the blocked route, a ring-buffer decode cache) and the
+stub frontends (``audio_stub`` frame embeddings, ``vision_stub``
+embeddings prepended to the tokens): ``init_params``, ``forward`` (the
+training forward: logits, the layers' summed MoE aux loss, the per-layer
+or per-site K/V when asked), ``loss_fn``, ``value_and_grad``,
+``make_train_step`` (microbatched gradient accumulation),
+``make_prefill_step``, ``init_decode_cache`` and ``make_serve_step``
+(one-token decode against the stacked cache: KV for attention, the shift
+rows and WKV state for RWKV, the conv window and SSM state for Mamba).
 
 Parameters live in an ``nn.Module`` whose names are the reference's
 (``embed``, ``final_norm``, ``lm_head``, and per layer ``ln1``, ``wq``,
 ``wk``, ``wv``, ``wo``, ``ln2`` and either ``w1``, ``w3``, ``w2`` or the
-submodule ``moe`` with ``router``, ``w1``, ``w3``, ``w2``), with weights
-``[in, out]`` so products stay ``x @ W``.  The reference stacks layers on
-a leading axis and scans; here ``layers`` is a ``ModuleList`` and a loop
-(``convert.py`` maps between the two).  The parameters do not require
+submodule ``moe`` with ``router``, ``w1``, ``w3``, ``w2``; an RWKV layer's
+``mix``, ``w_r``, ..., ``ln1``, ``ln2``; a Mamba layer's ``in_proj``, ...,
+``ln``), with weights ``[in, out]`` so products stay ``x @ W``.  The
+reference stacks layers on a leading axis and scans; here ``layers`` is a
+``ModuleList`` and a loop (``convert.py`` maps between the two).  Zamba's
+``layers`` is a ``ModuleList`` of sites, each a ``ModuleList`` of its
+Mamba layers (the reference's ``[sites, per, ...]``), beside ``tail``
+(the layers after the last site) and ``shared_attn`` (the attention and
+FFN leaves every site applies).  The parameters do not require
 gradients; ``value_and_grad`` turns that on for the one backward it
 takes, so serving and plain forwards record nothing.  Training works on a
 ``{name: tensor}`` dict with ``named_parameters()``'s names (``embed``,
 ``final_norm``, ``lm_head``, ``layers.<i>.<leaf>``,
-``layers.<i>.moe.<leaf>``); the prefill and decode steps run under
-``torch.inference_mode()``.
+``layers.<i>.moe.<leaf>``, ``layers.<site>.<j>.<leaf>``,
+``tail.<i>.<leaf>``, ``shared_attn.<leaf>``); the prefill and decode
+steps run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ from ..optim.optimizers import apply_updates
 from .layers import (KVCache, attention, decode_attention, gelu_mlp,
                      init_linear, init_rms, rms_norm, rope, swiglu)
 from .moe import init_moe_params, moe_ffn
+from .rwkv import init_rwkv_cache, init_rwkv_params, rwkv_forward, rwkv_step
+from .ssm import init_mamba_cache, init_mamba_params, mamba_forward, mamba_step
 
 __all__ = ["ModelConfig", "LM", "init_params", "forward", "loss_fn",
            "value_and_grad", "make_train_step", "make_prefill_step",
@@ -141,13 +151,9 @@ def active_param_count(cfg: ModelConfig) -> int:
     return cfg.n_layers * per_layer + 2 * cfg.vocab * d
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet, naming its ROADMAP item."""
-    if cfg.kind in ("rwkv", "zamba"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.kind} blocks are not "
-                                  f"ported yet (ROADMAP: LM stack, RWKV "
-                                  f"and Mamba)")
-    if cfg.kind not in ("dense", "moe"):
+def _check_config(cfg: ModelConfig) -> None:
+    """Refuse an unknown kind or attention route."""
+    if cfg.kind not in ("dense", "moe", "rwkv", "zamba"):
         raise ValueError(cfg.kind)
     if cfg.attn_impl not in ("blocked", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
@@ -215,9 +221,45 @@ class MoEBlock(_Block):
         self.moe = MoEParams(cfg, gen, device)
 
 
+class _Leaves(nn.Module):
+    """A block whose leaves come from an ``init_*_params`` dict, plus its
+    norms."""
+
+    def __init__(self, leaves: Dict[str, torch.Tensor], norms, dim: int,
+                 dtype, device):
+        super().__init__()
+        for name, t in leaves.items():
+            setattr(self, name, _frozen(t))
+        for name in norms:
+            setattr(self, name, _frozen(init_rms(dim, dtype, device)))
+
+
+class RWKVBlock(_Leaves):
+    """An RWKV-6 layer: time-mix and channel-mix leaves, ``ln1``, ``ln2``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__(init_rwkv_params(gen, cfg.d_model, cfg.d_ff,
+                                          head_dim=cfg.hd,
+                                          dtype=cfg.torch_dtype,
+                                          device=device),
+                         ("ln1", "ln2"), cfg.d_model, cfg.torch_dtype, device)
+
+
+class MambaBlock(_Leaves):
+    """A Mamba-2 layer: the SSD leaves and its pre-norm ``ln``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__(init_mamba_params(gen, cfg.d_model, cfg.ssm_state,
+                                           head_dim=cfg.ssm_head_dim,
+                                           dtype=cfg.torch_dtype,
+                                           device=device),
+                         ("ln",), cfg.d_model, cfg.torch_dtype, device)
+
+
 class LM(nn.Module):
-    """A decoder: embedding, ``layers`` (dense or MoE blocks), final norm
-    and head."""
+    """A decoder: embedding, ``layers`` (dense, MoE or RWKV blocks; for
+    zamba, sites of Mamba blocks, then ``tail`` and ``shared_attn``), final
+    norm and head."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
@@ -230,7 +272,18 @@ class LM(nn.Module):
         self.lm_head = nn.Parameter(
             init_linear(gen, cfg.d_model, cfg.vocab_padded, dt,
                         device=device), requires_grad=False)
-        block = MoEBlock if cfg.kind == "moe" else DenseBlock
+        if cfg.kind == "zamba":
+            sites, per, tail = cfg.zamba_structure()
+            self.layers = nn.ModuleList(
+                nn.ModuleList(MambaBlock(cfg, gen, device)
+                              for _ in range(per)) for _ in range(sites))
+            if tail:
+                self.tail = nn.ModuleList(MambaBlock(cfg, gen, device)
+                                          for _ in range(tail))
+            self.shared_attn = DenseBlock(cfg, gen, device)
+            return
+        block = {"dense": DenseBlock, "moe": MoEBlock,
+                 "rwkv": RWKVBlock}[cfg.kind]
         self.layers = nn.ModuleList(block(cfg, gen, device)
                                     for _ in range(cfg.n_layers))
 
@@ -241,7 +294,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     cast to the config's dtype) and placed on ``device`` (default: the
     generator's).  The draws differ from the reference's ``jax.random``
     ones; ``convert.load_reference_params`` carries its weights across."""
-    _check_ported(cfg)
+    _check_config(cfg)
     return LM(cfg, generator, device or generator.device)
 
 
@@ -281,10 +334,34 @@ def _ffn_apply(cfg: ModelConfig, lp: _Block, x: torch.Tensor):
 # ==================================================================== forward
 
 
-def _layer(cfg: ModelConfig, lp: _Block, x: torch.Tensor):
+def _leaves(lp: nn.Module) -> Dict[str, torch.Tensor]:
+    return dict(lp.named_parameters())
+
+
+def _layer(cfg: ModelConfig, lp: nn.Module, x: torch.Tensor):
+    """One layer forward (the reference's ``_block_fwd``): ``(x, aux,
+    kv)``, aux and kv None where the layer has none."""
+    if cfg.kind == "rwkv":
+        return rwkv_forward(_leaves(lp), x, lp.ln1, lp.ln2, cfg.hd), None, \
+            None
+    if cfg.kind == "zamba":                       # one Mamba layer
+        y = mamba_forward(_leaves(lp), rms_norm(x, lp.ln, cfg.norm_eps),
+                          d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
+        return x + y, None, None
     x, kv = _attn_apply(cfg, lp, x, 0)
     x, aux = _ffn_apply(cfg, lp, x)
     return x, aux, kv
+
+
+def _site(cfg: ModelConfig, site: nn.ModuleList, shared: DenseBlock,
+          x: torch.Tensor):
+    """A zamba super-block: its Mamba layers, then the shared attention
+    and FFN; ``(x, None, kv)``."""
+    for lp in site:
+        x = _layer(cfg, lp, x)[0]
+    x, kv = _attn_apply(cfg, shared, x, 0)
+    x, _ = _ffn_apply(cfg, shared, x)
+    return x, None, kv
 
 
 def _embed_inputs(params: LM, cfg: ModelConfig,
@@ -310,31 +387,41 @@ def _embed_inputs(params: LM, cfg: ModelConfig,
 def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
             return_cache: bool):
     """The inputs through every layer: the last hidden state, the layers'
-    aux losses summed in f32 (0 without MoE), and the stacked post-RoPE
-    ``(k, v)`` ``[L, B, S, Hkv, D]`` when asked.  With ``cfg.remat`` and
-    autograd recording, each layer is rematerialized in the backward (as
-    the reference's ``jax.checkpoint`` on its scan body): only the layer
-    inputs stay alive between the passes, and the aux comes out of the
-    checkpointed function so the router's gradient sees it."""
-    _check_ported(cfg)
+    aux losses summed in f32 (0 without MoE), and when asked the stacked
+    post-RoPE ``(k, v)`` ``[L, B, S, Hkv, D]`` of the attention layers (of
+    zamba's sites; RWKV has none, and its caches are None, as the
+    reference's).  With ``cfg.remat`` and autograd recording, each layer
+    (each zamba site; its tail layers not, as in the reference) is
+    rematerialized in the backward (the reference's ``jax.checkpoint`` on
+    its scan body): only the unit inputs stay alive between the passes,
+    and the aux comes out of the checkpointed function so the router's
+    gradient sees it."""
+    _check_config(cfg)
     x = _embed_inputs(params, cfg, batch)
     remat = cfg.remat and not return_cache and torch.is_grad_enabled()
+    if cfg.kind == "zamba":
+        units = [lambda h, site=site: _site(cfg, site, params.shared_attn, h)
+                 for site in params.layers]
+    else:
+        units = [lambda h, lp=lp: _layer(cfg, lp, h) for lp in params.layers]
     ks, vs, auxs = [], [], []
-    for lp in params.layers:
+    for unit in units:
         if remat:
-            x, aux = checkpoint(lambda h, lp=lp: _layer(cfg, lp, h)[:2], x,
+            x, aux = checkpoint(lambda h, unit=unit: unit(h)[:2], x,
                                 use_reentrant=False, preserve_rng_state=False)
         else:
-            x, aux, (k, v) = _layer(cfg, lp, x)
-            if return_cache:
-                ks.append(k)
-                vs.append(v)
+            x, aux, kv = unit(x)
+            if return_cache and kv is not None:
+                ks.append(kv[0])
+                vs.append(kv[1])
         if aux is not None:
             auxs.append(aux)
+    for lp in getattr(params, "tail", ()):
+        x = _layer(cfg, lp, x)[0]
     aux_sum = torch.stack(auxs).sum() if auxs else torch.zeros(
         (), dtype=torch.float32, device=x.device)
     caches = {"attn_kv": (torch.stack(ks), torch.stack(vs))} \
-        if return_cache else None
+        if return_cache and ks else None
     return x, aux_sum, caches
 
 
@@ -358,8 +445,9 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
     """Training / prefill forward.  Returns (logits, aux, caches|None):
     logits ``[B, S, vocab_padded]`` (S counts a vision prefix), aux the
     layers' MoE aux losses summed (0-d f32; 0 without MoE), caches
-    ``{"attn_kv": (k, v)}`` stacked over layers.  Differentiable: it
-    records for autograd where the caller does."""
+    ``{"attn_kv": (k, v)}`` stacked over attention layers (zamba's sites),
+    None for RWKV.  Differentiable: it records for autograd where the
+    caller does."""
     x, aux, caches = _hidden(params, cfg, batch, return_cache)
     x = _GradCast.apply(x, cfg.torch_dtype)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -457,7 +545,7 @@ def make_train_step(cfg: ModelConfig, optimizer,
     means over the parts; only one part's activations are alive at a time.
     ``apply_updates`` rounds ``p + u`` to each parameter's dtype.
     """
-    _check_ported(cfg)
+    _check_config(cfg)
     n = int(microbatches)
 
     def apply(params: LM, opt_state, grads, metrics):
@@ -497,7 +585,10 @@ def make_train_step(cfg: ModelConfig, optimizer,
 
 def make_prefill_step(cfg: ModelConfig):
     """Returns prefill_step(params, batch) -> (last-position logits
-    ``[B, 1, vocab_padded]``, caches)."""
+    ``[B, 1, vocab_padded]``, caches): ``{"attn_kv": (k, v)}`` stacked over
+    the attention layers (zamba's sites), None for RWKV.  As in the
+    reference, no RWKV or Mamba state is handed on: a decode after it
+    starts those from zero, so a stepped prompt is the serving route."""
 
     @torch.inference_mode()
     def prefill_step(params: LM, batch: Dict[str, Any]):
@@ -515,15 +606,35 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                      device=None) -> Dict[str, KVCache]:
-    """The stacked per-layer KV cache for one-token decode (``pos`` is
-    ``[L]``): capacity ``seq_len``, or ``min(seq_len, window)`` with a
-    sliding window, where decode writes it as a ring buffer."""
-    _check_ported(cfg)
+                      device=None) -> Dict[str, Any]:
+    """The stacked per-layer cache for one-token decode.  Attention: a KV
+    cache (``pos`` is ``[L]``) of capacity ``seq_len``, or ``min(seq_len,
+    window)`` with a sliding window, where decode writes it as a ring
+    buffer.  RWKV: ``{"rwkv"}``, the shift rows and the f32 WKV state
+    ``[L, ...]``.  Zamba: ``{"mamba"}`` ``[sites, per, ...]``, ``{"attn"}``
+    one KV cache a site, and ``{"mamba_tail"}`` ``[tail, ...]`` when the
+    config has a tail; the SSM states in f32."""
+    _check_config(cfg)
+    dt = cfg.torch_dtype
     cap = min(seq_len, cfg.window) if cfg.window else seq_len
-    return {"attn": KVCache.init(batch, cap, cfg.n_kv, cfg.hd,
-                                 cfg.torch_dtype, prefix=(cfg.n_layers,),
-                                 device=device)}
+    if cfg.kind == "rwkv":
+        return {"rwkv": init_rwkv_cache(batch, cfg.d_model, cfg.hd, dt,
+                                        device, prefix=(cfg.n_layers,))}
+    if cfg.kind != "zamba":
+        return {"attn": KVCache.init(batch, cap, cfg.n_kv, cfg.hd, dt,
+                                     prefix=(cfg.n_layers,), device=device)}
+    sites, per, tail = cfg.zamba_structure()
+
+    def mamba(prefix):
+        return init_mamba_cache(batch, cfg.d_model, cfg.ssm_state,
+                                cfg.ssm_head_dim, dtype=dt, device=device,
+                                prefix=prefix)
+    out = {"mamba": mamba((sites, per)),
+           "attn": KVCache.init(batch, cap, cfg.n_kv, cfg.hd, dt,
+                                prefix=(sites,), device=device)}
+    if tail:
+        out["mamba_tail"] = mamba((tail,))
+    return out
 
 
 def _attn_step(cfg: ModelConfig, lp: _Block, cache: KVCache,
@@ -544,17 +655,35 @@ def make_serve_step(cfg: ModelConfig):
     """Returns serve_step(params, cache, batch{tokens [B, 1]}) ->
     (logits ``[B, 1, vocab_padded]``, cache).  The cache is advanced in
     place and returned."""
-    _check_ported(cfg)
+    _check_config(cfg)
+
+    def mamba(lp, c, x: torch.Tensor) -> torch.Tensor:
+        y, _ = mamba_step(_leaves(lp), c, rms_norm(x, lp.ln, cfg.norm_eps),
+                          d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
+        return x + y
 
     @torch.inference_mode()
-    def serve_step(params: LM, cache: Dict[str, KVCache],
+    def serve_step(params: LM, cache: Dict[str, Any],
                    batch: Dict[str, Any]):
         tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
         x = params.embed[tokens.long()]
-        attn = cache["attn"]
-        for i, lp in enumerate(params.layers):
-            x = _attn_step(cfg, lp, attn.layer(i), x)
-            x, _ = _ffn_apply(cfg, lp, x)
+        if cfg.kind == "rwkv":
+            for i, lp in enumerate(params.layers):
+                x, _ = rwkv_step(_leaves(lp), cache["rwkv"].layer(i), x,
+                                 lp.ln1, lp.ln2, cfg.hd)
+        elif cfg.kind == "zamba":
+            shared = params.shared_attn
+            for s, site in enumerate(params.layers):
+                for j, lp in enumerate(site):
+                    x = mamba(lp, cache["mamba"].layer(s, j), x)
+                x = _attn_step(cfg, shared, cache["attn"].layer(s), x)
+                x, _ = _ffn_apply(cfg, shared, x)
+            for i, lp in enumerate(getattr(params, "tail", ())):
+                x = mamba(lp, cache["mamba_tail"].layer(i), x)
+        else:
+            for i, lp in enumerate(params.layers):
+                x = _attn_step(cfg, lp, cache["attn"].layer(i), x)
+                x, _ = _ffn_apply(cfg, lp, x)
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         return _mask_padded(x @ params.lm_head, cfg), cache
 

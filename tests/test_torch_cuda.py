@@ -536,6 +536,16 @@ def test_flash_attention_at_scout_and_internvl_groups(cuda, dtype, g, d):
     _flash_case(cuda, dtype, 1, 4096, 2, g, d, 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [100, 4096])
+@pytest.mark.parametrize("hkv,g", [(2, 1), (2, 4)])
+def test_flash_attention_at_zamba_head_dim(cuda, dtype, s, hkv, g):
+    """D 112, zamba2-7b's 3584 / 32: 7 k16 steps in the bf16 body and 7
+    output columns a thread in the f32 body; G 1 (zamba's shared
+    attention) and a GQA group of 4, a ragged length and the prefill's."""
+    _flash_case(cuda, dtype, 1, s, hkv, g, 112, 0)
+
+
 @pytest.mark.parametrize("offset", [1, 4])
 @pytest.mark.parametrize("operand", ["q", "k", "o"])
 def test_flash_attention_refuses_misaligned_bf16(cuda, offset, operand):
@@ -714,6 +724,39 @@ def test_reduced_lm_flash_matches_blocked_on_card(cuda, dtype):
         assert float(diff.max()) <= 1e-4
     else:
         assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_reduced_ssm_lm_on_card_matches_host(cuda, arch):
+    """The reduced RWKV and zamba models (f32; zamba through K8, once a
+    site) on the card against the host from the same weights: a 256-token
+    forward (two 128-token WKV / SSD chunks) and 8 decode steps, logits
+    within 1e-4 (cuBLAS's f32 sums in another order, TF32 off)."""
+    import copy
+    from repro_torch.models import init_decode_cache, make_serve_step
+    cfg = dataclasses.replace(get_arch(arch, reduced=True),
+                              attn_impl="flash")
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(host).to(cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 256)).astype(
+        np.int32)
+    out = {}
+    for name, model, dev in (("card", card, cuda), ("host", host, "cpu")):
+        ops.reset_kernel_launches()
+        with torch.no_grad():
+            logits, _, _ = forward(model, cfg, {"tokens": toks})
+        k8 = ops.kernel_launches()["flash_attention"]
+        step = make_serve_step(cfg)
+        cache = init_decode_cache(cfg, 2, 8, dev)
+        steps = [step(model, cache, {"tokens": toks[:, t:t + 1]})[0].cpu()
+                 for t in range(8)]
+        out[name] = (logits.cpu(), torch.cat(steps, 1), k8)
+    sites = cfg.zamba_structure()[0] if cfg.kind == "zamba" else 0
+    assert out["card"][2] == sites and out["host"][2] == 0
+    for i in (0, 1):
+        assert bool(torch.isfinite(out["card"][i]).all())
+        torch.testing.assert_close(out["card"][i], out["host"][i],
+                                   rtol=1e-4, atol=1e-4)
 
 
 def _moe_case(device, dtype, seed=0):

@@ -194,32 +194,41 @@ def test_unknown_agg_impl_and_dtype_rejected():
     ("internvl2-1b", {}, "stub frontends"),
 ], ids=lambda x: x if isinstance(x, str) else "")
 def test_unported_lm_config_raises(arch, kw, item):
-    """Only the RWKV and Mamba kinds still raise, naming their ROADMAP
-    item.  The MoE, sliding-window and stub-frontend configs that raised
-    before are ported: each builds and decodes on the CPU, its cache
-    holding ``min(seq_len, window)`` slots (a window of 8 wraps in the 12
-    steps)."""
+    """No LM config raises any more: the MoE, sliding-window,
+    stub-frontend, RWKV and Mamba configs that raised before (``item``
+    names the ROADMAP entry that ported each) build and decode on the CPU.
+    An attention cache holds ``min(seq_len, window)`` slots (a window of 8
+    wraps in the 12 steps); RWKV's holds the shift rows and the WKV state
+    a layer; zamba's the Mamba state a layer plus one such KV cache a
+    site."""
     cfg = dataclasses.replace(get_arch(arch, reduced=True), **kw)
-    gen = torch.Generator().manual_seed(0)
-    if cfg.kind in ("rwkv", "zamba"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP: LM stack, "
-                                                      f"{item}"):
-            init_params(cfg, gen, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_decode_cache(cfg, 1, 8, "cpu")
-        return
-    model = init_params(cfg, gen, "cpu")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     seq_len = 12
     cache = init_decode_cache(cfg, 2, seq_len, "cpu")
     want = min(seq_len, cfg.window) if cfg.window else seq_len
-    assert cache["attn"].capacity == want
+    if cfg.kind == "rwkv":
+        assert sorted(cache) == ["rwkv"]
+        assert cache["rwkv"].s.shape == (cfg.n_layers, 2, cfg.n_heads,
+                                         cfg.hd, cfg.hd)
+    else:
+        assert cache["attn"].capacity == want
+    if cfg.kind == "zamba":
+        sites, per, tail = cfg.zamba_structure()
+        assert cache["mamba"].h.shape[:2] == (sites, per)
+        assert cache["mamba_tail"].h.shape[0] == tail
+        assert sites * per + tail == cfg.n_layers
     step = make_serve_step(cfg)
     for t in range(seq_len):
         logits, cache = step(model, cache,
                              {"tokens": torch.full((2, 1), t + 1)})
         assert logits.shape == (2, 1, cfg.vocab_padded)
         assert bool(torch.isfinite(logits).all())
-    assert cache["attn"].pos.tolist() == [seq_len] * cfg.n_layers
+    if cfg.kind == "rwkv":
+        assert bool(cache["rwkv"].s.any())
+        return
+    attn_layers = cfg.zamba_structure()[0] if cfg.kind == "zamba" \
+        else cfg.n_layers
+    assert cache["attn"].pos.tolist() == [seq_len] * attn_layers
     assert sorted(cache["attn"].slot_pos[0].tolist()) == list(
         range(seq_len - want, seq_len))
 

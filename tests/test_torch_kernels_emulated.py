@@ -718,7 +718,9 @@ def test_emulated_launches_are_counted(emulated_ops):
     ((1, 100, 2, 2, 16), 0),      # ragged length, a position across CTAs
     ((1, 70, 1, 3, 32), 5),       # G = 3: CTAs start mid-position
     ((2, 20, 1, 1, 64), 0),       # G = 1, two batch rows
-    ((1, 40, 1, 2, 128), 2)])     # the widest head
+    ((1, 40, 1, 2, 128), 2),      # the widest head
+    ((1, 70, 1, 1, 112), 0),      # zamba2-7b's head: 7 k16 steps, G = 1
+    ((1, 40, 2, 2, 112), 3)])     # D 112 with GQA, two KV heads
 def test_emulated_flash_attention(emulated_ops, dtype, shape, pos0):
     """K8 through its ctypes entry point against the plain flash attention:
     f32 (the FMA body) within 1e-5 (the online softmax sums in another
