@@ -230,6 +230,27 @@ Phases, each printing one JSON line:
                memory; (d) card vs host at full width, 1 x 512: rwkv at
                depth 1, zamba as one site of one Mamba layer and the
                shared block; the loss and every gradient leaf
+  mesh         the mesh route (~2-3 min): (a) python -m
+               repro_torch.launch.dryrun on six cells of the 16 x 16
+               production mesh under the fake process group (256 ranks, no
+               card: the reference's three test cells, smollm-135m's auto
+               cell, llama3.2-1b's train_4k and prefill_32k under auto;
+               rwkv6's cell started before lm_ssm), every cell ok, its bytes
+               a rank, fits_80gb, FLOPs, collective bytes by kind and the
+               roofline terms at the H100's constants; (b) two ranks on
+               cuda:0 over gloo (NCCL refuses two ranks on one card),
+               llama3.2-1b at full width and depth 4 under dp on a (2, 1)
+               mesh, K8 under local_map, 2 AdamW steps of 2 x 4096 tokens:
+               losses within the lm_train bound of the one-process run, K8
+               8 times a step on each rank, the parameters' layout kept, ms
+               a step (gloo, host-staged: no speed meaning); tp2d is held on
+               the CPU by the tests (gloo's functional all-gather and
+               reduce-scatter on CUDA tensors never complete); (c)
+               hierarchical_psum_mean of the two ranks' own f32 gradient
+               trees on the (2, 1) mesh and on a (2, 1, 1) pod mesh (its
+               flat path) equal to a flat all_reduce mean, the identity on
+               a mesh of one; (d) python -m repro_torch.launch.train
+               --model-parallel 2 in one process: no mesh, K8 launched
 
 The kernels phase also holds K8 (flash attention) against its plain version
 at the prefill's shape in f32 (the FMA body) and bf16 (the tensor-core
@@ -252,6 +273,7 @@ import glob
 import json
 import math
 import os
+import queue
 import shutil
 import statistics
 import subprocess
@@ -3482,6 +3504,317 @@ def phase_lm_ssm(dev: torch.device, peak_bw: float) -> dict:
     return res
 
 
+# The mesh phase: the port's mesh route on the card.
+MESH_ARCH = "llama3.2-1b"
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 2, 4096, 2
+# two ranks share the card: at full depth each rank's AdamW step peaks at
+# ~32 GB (the old and new f32 moments, the updates, the new weights), and
+# two of them did not fit in 80 GB; depth 4 keeps the width (K8's shapes)
+# and ~20 GB a rank
+MESH_LAYERS = 4
+# (a) the dry-run's cells on the 16 x 16 production mesh (fake group, 256
+# ranks): the reference's three test cells, the auto cell, and
+# llama3.2-1b's train and prefill under the auto policy
+MESH_DRYRUN_CELLS = (("smollm-135m", "train_4k", "tp2d"),
+                     ("smollm-135m", "decode_32k", "serve2d"),
+                     ("rwkv6-1.6b", "prefill_32k", "tp2d"),
+                     ("smollm-135m", "train_4k", "auto"),
+                     ("llama3.2-1b", "train_4k", "auto"),
+                     ("llama3.2-1b", "prefill_32k", "auto"))
+# rwkv6's prefill steps through 256 WKV chunks in 24 layers under the fake
+# mode (~3 min of host time on the card's machine): it starts before the
+# lm_ssm phase, on one core, and the mesh phase collects it
+MESH_DRYRUN_EARLY = (("rwkv6-1.6b", "prefill_32k", "tp2d"),)
+# NCCL refuses two ranks on one card, so the phase's two ranks share
+# cuda:0 over gloo.  scripts/gloo_cuda_probe.py on the card (NVIDIA H100
+# 80GB HBM3): gloo takes all_reduce, all_gather_into_tensor,
+# reduce_scatter_tensor, all_to_all_single and broadcast on CUDA tensors in
+# f32 and bf16 through torch.distributed, and DTensor's all-reduce
+# (Partial -> Replicate); DTensor's redistributions through an all-gather
+# or a reduce-scatter (the functional collectives) never completed.  The dp
+# route needs only all-reduces, so it runs here, on a (2, 1) mesh; tp2d
+# gathers and scatters activations, so it is held on the CPU under gloo by
+# the tests (tests/test_torch_mesh.py), not on the card.
+MESH_DP = (2, 1)
+# (c) two ranks' f32 sums: a + b is the same sum in either order, so the
+# hierarchical mean equals the flat one bit for bit
+PSUM_TOL = 0.0
+
+
+def mesh_rank(rank: int, store: str, q) -> None:
+    """One of the phase's two ranks on cuda:0 (a spawned process): (b) 2
+    AdamW steps of llama3.2-1b (2 x 4096 tokens, K8 under local_map) under
+    dp on the ('data', 'model') mesh ``MESH_DP``, then (c) the hierarchical
+    mean of the two ranks' own gradient trees.  Puts ``(rank, result)`` on
+    ``q``; an exception puts its traceback."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=120))
+        res = _mesh_rank_run(rank)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        res = {"error": traceback.format_exc()[-3000:]}
+    q.put((rank, res))
+
+
+def _mesh_rank_run(rank: int) -> dict:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.dist import (hierarchical_psum_mean, shard_batch,
+                                  shard_params, use_mesh, use_policy)
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, make_train_step, \
+        value_and_grad
+    from repro_torch.optim import adamw
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_arch(MESH_ARCH), attn_impl="flash",
+                              n_layers=MESH_LAYERS)
+    mesh = init_device_mesh("cuda", MESH_DP,
+                            mesh_dim_names=("data", "model"))
+    batches = list(TokenPipeline(cfg, MESH_BATCH, MESH_SEQ, seed=0, depth=0,
+                                 device=dev).batches(MESH_STEPS))
+    res: dict = {"rank": rank}
+    with use_mesh(mesh), use_policy("dp"):
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        placements = shard_params(model, mesh)
+        opt = adamw(TRAIN_LR)
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(cfg, opt)
+        losses, times, k8 = [], [], []
+        for b in batches:
+            ops.reset_kernel_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, shard_batch(b, mesh))
+            losses.append(float(m["loss"].full_tensor()))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            k8.append(ops.kernel_launches()["flash_attention"])
+        res.update(losses=losses, ms_per_step=times, k8_per_step=k8,
+                   layout_kept=all(tuple(p.placements) == placements[k]
+                                   for k, p in model.named_parameters()),
+                   local_param_bytes=sum(
+                       p.to_local().numel() * p.element_size()
+                       for p in model.parameters()),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        # (c) each rank's own gradient tree: the loss of its batch row on
+        # a plain copy of the (replicated) weights
+        plain = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        with torch.no_grad():
+            for (_, p), (_, d) in zip(plain.named_parameters(),
+                                      model.named_parameters()):
+                p.copy_(d.to_local())
+    del model, state
+    torch.cuda.empty_cache()
+    row = {k: v[rank:rank + 1] for k, v in batches[-1].items()}
+    _, _, grads = value_and_grad(plain, cfg, row)
+    del plain
+    tree = {k: g.float() for k, g in grads.items()}
+    del grads
+    flat = {}
+    for k, g in tree.items():
+        t = g.clone()
+        dist.all_reduce(t)
+        flat[k] = t / 2
+    pod = init_device_mesh("cuda", (2, 1, 1),
+                           mesh_dim_names=("pod", "data", "model"))
+    one = DeviceMesh("cuda", torch.tensor([[rank]]),
+                     mesh_dim_names=("data", "model"), _init_backend=False)
+    err = {}
+    t0 = time.perf_counter()
+    for name, m in (("data_model", mesh), ("pod", pod)):
+        with use_mesh(m):
+            got = hierarchical_psum_mean(tree)
+        err[name] = max(float((got[k] - flat[k]).abs().max()) for k in tree)
+        del got
+    with use_mesh(one):
+        identity = hierarchical_psum_mean(tree) is tree
+    res["psum"] = dict(max_abs_err=err, identity_on_one=identity,
+                       leaves=len(tree),
+                       elements=sum(t.numel() for t in tree.values()),
+                       s=time.perf_counter() - t0)
+    return res
+
+
+def start_dryrun(out_dir: Path, cells) -> list:
+    """(a) the dry-run CLI on each cell, all subprocesses started at once
+    (they need no card)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, policy in cells:
+        out = out_dir / f"dryrun-{arch}-{shape}-{policy}.json"
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--policy", policy,
+             "--out", str(out), "--quiet"], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _finish_dryrun(procs: list) -> list:
+    cells = []
+    try:
+        for out, p in procs:
+            _, err = p.communicate(timeout=600)
+            # the CLI writes its cells, failed ones with their error, then
+            # exits non-zero if any failed
+            check(out.exists(), f"(a) dry-run {out.name}: {err[-2000:]}")
+            cells += json.loads(out.read_text())
+            check(p.returncode == 0 or any(
+                r["status"] == "error" for r in cells),
+                f"(a) dry-run {out.name} exit {p.returncode}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    rows = []
+    for r in cells:
+        check(r["status"] == "ok", f"(a) {r['arch']} {r['shape']}: "
+              f"{r.get('error')}\n{r.get('traceback', '')}")
+        roof = r["roofline"]
+        rows.append(dict(
+            arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+            policy=r["policy"], attn_impl=r["attn_impl"],
+            microbatches=r["microbatches"], status=r["status"],
+            bytes_per_device=r["bytes_per_device"],
+            argument_bytes=r["memory"]["argument_bytes"],
+            peak_live_bytes=r["memory"]["peak_live_bytes"],
+            fits_80gb=r["fits_80gb"], flops=r["cost"]["flops"],
+            hbm_bytes=r["cost"]["bytes"], collectives=r["collectives"],
+            t_compute_s=roof["t_compute_s"], t_memory_s=roof["t_memory_s"],
+            t_collective_s=roof["t_collective_s"],
+            bottleneck=roof["bottleneck"],
+            roofline_fraction=roof["roofline_fraction"],
+            t_run_s=r["t_run_s"]))
+    return rows
+
+
+def _two_ranks(work: Path) -> list:
+    """(b) and (c): the two ranks on cuda:0; every process joined."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = str(work / "store")
+    procs = [ctx.Process(target=mesh_rank, args=(r, store, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in procs:
+            try:
+                rank, res = q.get(timeout=300)
+            except queue.Empty:
+                break
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = {r: out[r]["error"] for r in out if "error" in out[r]}
+    check(len(out) == 2 and not errors, f"(b) ranks {sorted(out)} "
+          f"answered; errors {errors}")
+    return [out[0], out[1]]
+
+
+def phase_mesh(dev: torch.device, work: Path, early: list) -> dict:
+    """The mesh route on the card (see the module docstring); ``early``
+    holds the dry-run cells started before the lm_ssm phase, ``work`` their
+    directory (removed here)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    res: dict = {"part_s": {}}
+
+    def lap(part: str) -> None:
+        res["part_s"][part] = time.perf_counter() - t_phase - sum(
+            res["part_s"].values())
+
+    try:
+        dryrun = early + start_dryrun(work, [
+            c for c in MESH_DRYRUN_CELLS if c not in MESH_DRYRUN_EARLY])
+        # (b) the one-process run the two ranks are held against
+        cfg = dataclasses.replace(get_arch(MESH_ARCH), attn_impl="flash",
+                                  n_layers=MESH_LAYERS)
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        opt = adamw(TRAIN_LR)
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(cfg, opt)
+        one = []
+        for b in TokenPipeline(cfg, MESH_BATCH, MESH_SEQ, seed=0, depth=0,
+                               device=dev).batches(MESH_STEPS):
+            model, state, m = step(model, state, b)
+            one.append(float(m["loss"]))
+        del model, state, step, m, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["one_process_losses"] = one
+        res["main_allocated_bytes"] = torch.cuda.memory_allocated(dev)
+        lap("one_process")
+        ranks = _two_ranks(work)
+        for r in ranks:
+            d = max(abs(a - b) for a, b in zip(r["losses"], one))
+            check(d <= TRAIN_LOSS_TOL, f"(b) rank {r['rank']} losses "
+                  f"{r['losses']} vs one process {one}")
+            check(r["layout_kept"], "(b) the parameters' layout changed")
+            per_step = cfg.n_layers * 2        # forward + remat recompute
+            check(r["k8_per_step"] == [per_step] * MESH_STEPS,
+                  f"(b) K8 launches {r['k8_per_step']}")
+            r["max_loss_diff"] = d
+            c = r.pop("psum")
+            check(all(v <= PSUM_TOL for v in c["max_abs_err"].values()),
+                  f"(c) hierarchical vs flat mean {c['max_abs_err']}")
+            check(c["identity_on_one"], "(c) not the identity on one rank")
+            res.setdefault("psum", []).append(c)
+        res["dp"] = dict(mesh=list(MESH_DP), ranks=ranks,
+                         ms_note="gloo, host-staged: no speed meaning")
+        lap("dp")
+        # (d) one process: --model-parallel 2 without a mesh, through K8
+        check("WORLD_SIZE" not in os.environ, "(d) a launcher's WORLD_SIZE")
+        ops.reset_kernel_launches()
+        cli = train_cli.main(["--arch", "smollm-135m", "--steps", "2",
+                              "--batch", "2", "--seq", "512", "--attn-impl",
+                              "flash", "--model-parallel", "2",
+                              "--prefetch-depth", "0"])
+        cli_k8 = ops.kernel_launches()["flash_attention"]
+        check("mesh" not in cli and cli_k8 == cli["k8_launches"] > 0
+              and all(math.isfinite(x) for x in cli["losses"]),
+              f"(d) {cli}")
+        res["one_process_cli"] = dict(losses=cli["losses"],
+                                      k8_launches=cli_k8)
+        lap("cli")
+        res["dryrun"] = _finish_dryrun(dryrun)
+        lap("dryrun_wait")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["k8_launches"] = dict(
+        ranks=sum(sum(r["k8_per_step"]) for r in res["dp"]["ranks"]),
+        one_process_cli=cli_k8)
+    emit("mesh", **res)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -3598,8 +3931,11 @@ def main() -> int:
                                PLATFORMS[platform].mem_bw_gbps * 1e9)
     moe_res = phase_lm_moe(torch.device("cuda", 0),
                            PLATFORMS[platform].mem_bw_gbps * 1e9)
+    mesh_work = ROOT / "build" / f"mesh-{os.getpid()}"
+    early = start_dryrun(mesh_work, MESH_DRYRUN_EARLY)
     ssm_res = phase_lm_ssm(torch.device("cuda", 0),
                            PLATFORMS[platform].mem_bw_gbps * 1e9)
+    mesh_res = phase_mesh(torch.device("cuda", 0), mesh_work, early)
 
     launches = dict(train["launches"])
     launches["segment_sum"] = seg_launches["segment_sum"]
@@ -3610,7 +3946,9 @@ def main() -> int:
         shard_launches["cache_combine_pipelined"]
     # K8's paths: the serve phase's prefill, the lm_train slice, in lm_moe
     # llama4-scout's prefill and the two frontends' training steps, and in
-    # lm_ssm zamba2-7b's prefill and training steps (D 112)
+    # lm_ssm zamba2-7b's prefill and training steps (D 112), and in mesh
+    # the two ranks' steps (each rank's own count, under local_map) and
+    # the one-process CLI
     k8_paths = dict(serve=serve_res["k8_launches"],
                     lm_train=train_res["slice"]["launches"]["flash_attention"],
                     lm_moe_scout_prefill=moe_res["k8_launches"][
@@ -3618,7 +3956,11 @@ def main() -> int:
                     lm_moe_frontends=moe_res["k8_launches"]["frontends"],
                     lm_ssm_zamba_prefill=ssm_res["k8_launches"][
                         "zamba_prefill"],
-                    lm_ssm_zamba_train=ssm_res["k8_launches"]["zamba_train"])
+                    lm_ssm_zamba_train=ssm_res["k8_launches"][
+                        "zamba_train"],
+                    mesh_ranks=mesh_res["k8_launches"]["ranks"],
+                    mesh_one_process=mesh_res["k8_launches"][
+                        "one_process_cli"])
     launches["flash_attention"] = sum(k8_paths.values())
     k8_keys = ("shape", "max_abs_err", "ms", "call_ms", "plain_ms",
                "library_ms", "bound_ms", "bound_by", "tflops",

@@ -1,6 +1,7 @@
-"""Peer feature exchange of the sharded hot-feature plane.
+"""Peer feature exchange of the sharded hot-feature plane, and the
+hierarchical gradient mean over a device mesh.
 
-Port of the peer half of ``repro/dist/collectives.py``.  Each accelerator
+Port of ``repro/dist/collectives.py``.  Each accelerator
 pins a disjoint hot shard (``graph.featcache.ShardedFeatureCache``); a
 frontier row that misses locally but is resident on a peer shard is served
 by one gather on the peer's device (``kernels.ops.gather_rows``: K1, or K4
@@ -17,16 +18,24 @@ current stream (the trainer's transfer stream).  With logical accelerators
 sharing one card it is a no-op; across cards PyTorch runs the copy on the
 owner's stream after the gather and makes the reader's stream wait for it
 (``tests/test_torch_cuda.py`` checks this on two cards).
+
+``hierarchical_psum_mean`` averages each rank's tensors over the ambient
+``DeviceMesh`` in the reference's three steps: a reduce-scatter inside the
+pod (the mesh dims other than ``pod``), an all-reduce across pods, an
+all-gather inside the pod.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
 from ..kernels.ops import gather_rows
 
-__all__ = ["exchange_peer_rows", "peer_gather_rows", "ring_order"]
+__all__ = ["exchange_peer_rows", "hierarchical_psum_mean",
+           "peer_gather_rows", "ring_order"]
 
 
 def ring_order(n: int, me: int) -> List[int]:
@@ -68,3 +77,59 @@ def exchange_peer_rows(requests: Sequence[Tuple[int, Any, int]],
     return [peer_gather_rows(block_of(int(peer), int(version)), slots,
                              dest_device, pipeline_depth)
             for peer, slots, version in requests]
+
+
+def _group(mesh, dims: Tuple[str, ...]):
+    """The process group over mesh dims ``dims`` (flattened when several)."""
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    sub = mesh if tuple(mesh.mesh_dim_names) == dims else mesh[dims]
+    return sub._flatten("_".join(dims)).get_group()
+
+
+def hierarchical_psum_mean(tree: Any) -> Any:
+    """The mean over the ambient mesh's ranks of each rank's ``tree`` (a
+    pytree of tensors, the same structure and shapes on every rank), each
+    leaf cast back to its dtype.  A leaf whose dim 0 the pod's size divides
+    goes reduce-scatter inside the pod, all-reduce across pods, all-gather
+    inside the pod; any other leaf takes one all-reduce over the mesh.  The
+    identity with no mesh or a mesh of one rank."""
+    from . import axis_sizes, current_mesh
+    mesh = current_mesh()
+    sizes = axis_sizes(mesh)
+    n_total = 1
+    for n in sizes.values():
+        n_total *= n
+    if n_total == 1:
+        return tree
+    names = tuple(mesh.mesh_dim_names)
+    local = tuple(n for n in names if n != "pod")
+    local_size = 1
+    for n in local:
+        local_size *= sizes[n]
+    groups: dict = {}
+
+    def group(dims: Tuple[str, ...]):
+        # each group made once a call, and only where a leaf needs it
+        if dims not in groups:
+            groups[dims] = _group(mesh, dims)
+        return groups[dims]
+
+    leaves, spec = pytree.tree_flatten(tree)
+    out = []
+    for v in leaves:
+        if local and local_size > 1 and v.dim() >= 1 \
+                and v.shape[0] % local_size == 0:
+            part = torch.empty((v.shape[0] // local_size, *v.shape[1:]),
+                               dtype=v.dtype, device=v.device)
+            dist.reduce_scatter_tensor(part, v.contiguous(),
+                                       group=group(local))
+            if "pod" in sizes:
+                dist.all_reduce(part, group=group(("pod",)))
+            s = torch.empty_like(v)
+            dist.all_gather_into_tensor(s, part, group=group(local))
+        else:
+            s = v.clone()
+            dist.all_reduce(s, group=group(names))
+        out.append((s / n_total).to(v.dtype))
+    return pytree.tree_unflatten(out, spec)

@@ -9,7 +9,8 @@ no fallback from a failed build or launch to the plain version.
 
 Each launch adds one to its kernel's counter (``kernel_launches()``), so a
 run can show that its main path went through the kernels.  The two layer
-kernels and flash attention sit inside ``torch.autograd.Function``s whose
+kernels sit inside ``torch.autograd.Function``s and flash attention in a
+custom op (``torch.library.custom_op``) whose autograd is registered; their
 backwards are the reference's VJPs (``repro/kernels/ops.py:343-357``,
 ``:414-445`` and ``:458-480``), written as torch ops: the reference has no
 Pallas backward either.
@@ -461,20 +462,31 @@ FLASH_HEAD_DIMS = (16, 32, 64, 112, 128)   # K8's template instances
 FLASH_MAX_TILE = 512                  # the reference's q_block / kv_tile cap
 
 
-def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_block: int, pos0: int) -> torch.Tensor:
+def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_block: int) -> int:
+    """Validate the shapes; the q block ``min(q_block, S)``."""
     if q.dim() != 5 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[:3] != k.shape[:3] or q.shape[4] != k.shape[3]:
         raise ValueError(f"flash attention: q [B,S,Hkv,G,D] and k/v "
                          f"[B,S,Hkv,D] expected, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, s, hkv, g, d = (int(x) for x in q.shape)
+    s = int(q.shape[1])
     qb, kvt = min(int(q_block), s), min(FLASH_MAX_TILE, s)
     if s % qb or s % kvt:
         raise ValueError(f"flash attention: sequence {s} must be a multiple "
                          f"of its q block {qb} and kv tile {kvt}")
+    return qb
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_block: int, pos0: int) -> torch.Tensor:
+    """K8's forward as one named op: the kernel on a CUDA tensor, the plain
+    version on a CPU one."""
+    qb = _flash_check(q, k, v, q_block)
     if _on_cpu(q):
         return ref.flash_attention(q, k, v, qb, pos0)
+    b, s, hkv, g, d = (int(x) for x in q.shape)
     suffix = _SUFFIX.get(q.dtype)
     if suffix is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention: unsupported dtypes {q.dtype}, "
@@ -490,19 +502,27 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, q_block, pos0):
-        ctx.save_for_backward(q, k, v)
-        ctx.q_block, ctx.pos0 = q_block, pos0
-        return _flash_forward(q, k, v, q_block, pos0)
+@_flash_op.register_fake
+def _flash_fake(q, k, v, q_block, pos0):
+    # shapes only: a fake (or meta) tensor never builds or launches K8
+    _flash_check(q, k, v, q_block)
+    return torch.empty_like(q)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        d_q, d_k, d_v = ref.flash_attention_vjp(q, k, v, g, ctx.q_block,
-                                                ctx.pos0)
-        return d_q, d_k, d_v, None, None
+
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, q_block, pos0 = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.q_block, ctx.pos0 = q_block, pos0
+
+
+def _flash_backward(ctx, g):
+    q, k, v = ctx.saved_tensors
+    d_q, d_k, d_v = ref.flash_attention_vjp(q, k, v, g, ctx.q_block,
+                                            ctx.pos0)
+    return d_q, d_k, d_v, None, None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -511,11 +531,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: [B, S, Hkv, G, D]; k/v: [B, S, Hkv, D] -> [B, S, Hkv, G, D].  As in
     the reference's kernel call, S must be a multiple of ``min(q_block, S)``
-    and of ``min(512, S)``: any S up to 512, a multiple of 512 above.  The
-    forward launches K8 on a CUDA tensor (f32 or bf16, D in
-    ``FLASH_HEAD_DIMS``, every base pointer 16-byte aligned) or raises; a
-    CPU tensor runs the plain version.  The gradient is the reference's
-    recompute VJP (``ref.flash_attention_vjp``) on the inputs' device: it
-    saves q, k and v, not the output.
+    and of ``min(512, S)``: any S up to 512, a multiple of 512 above.  One
+    custom op, ``torch.ops.repro_torch.flash_attention``: its forward
+    launches K8 on a CUDA tensor (f32 or bf16, D in ``FLASH_HEAD_DIMS``,
+    every base pointer 16-byte aligned) or raises, runs the plain version
+    on a CPU tensor, and under ``FakeTensorMode`` only gives the output's
+    shape, so the dry-run, ``local_map`` and the cost model see one named
+    op.  The gradient is the reference's recompute VJP
+    (``ref.flash_attention_vjp``) on the inputs' device: it saves q, k and
+    v, not the output.
     """
-    return _FlashAttention.apply(q, k, v, int(q_block), int(pos0))
+    return _flash_op(q, k, v, int(q_block), int(pos0))

@@ -7,8 +7,16 @@ prefetching input pipeline (``data.TokenPipeline``), AdamW under the cosine
 warm-up schedule, microbatched gradient accumulation, and checkpoint /
 restart through ``checkpoint.CheckpointManager(keep=2)`` (parameters,
 optimizer state and its step).  Runs on ``cuda:0`` unless ``--device`` says
-otherwise; weights are random from ``--seed`` (a ``torch.Generator``).  One
-card has no mesh, so ``--model-parallel`` above 1 raises.
+otherwise; weights are random from ``--seed`` (a ``torch.Generator``).
+
+As in the reference, a mesh exists only when there is more than one rank:
+under ``torchrun`` with ``WORLD_SIZE > 1`` each process joins the group
+(NCCL on CUDA, each rank on ``cuda:<LOCAL_RANK>``; gloo with ``--device
+cpu``), builds a ('data', 'model') mesh with ``--model-parallel`` ranks on
+'model', lays the parameters out by the rule table and runs the step under
+it (the default 'tp2d' policy).  One process runs without a mesh whatever
+``--model-parallel`` says.  Rank 0 prints and writes the checkpoints (full
+tensors, so a run restores onto any mesh).
 
 A resumed run reads the batches of the steps it resumes at (step ``i``
 from ``seed + i``), so its losses continue an uninterrupted run's bit for
@@ -21,19 +29,60 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.dist import shard_batch, shard_params, use_mesh
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import init_params, make_train_step, param_count
 from repro_torch.optim import adamw, cosine_warmup_schedule
+
+
+def _full(tree):
+    """A state tree with every DTensor gathered to its full value."""
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+
+
+def _value(t: torch.Tensor) -> float:
+    return float(_full(t))
+
+
+def _load(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy a restored full tensor into ``dst`` (its shard if a DTensor)."""
+    if isinstance(dst, DTensor):
+        src = distribute_tensor(src.to(dst.device), dst.device_mesh,
+                                dst.placements, src_data_rank=None)
+    dst.copy_(src)
+
+
+def _setup(device: torch.device, model_parallel: int):
+    """(device, mesh, rank, joined): a mesh only under a multi-process
+    launch; ``joined`` when this call joined the process group (a caller
+    may have joined it already)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device, None, 0, False
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    joined = not dist.is_initialized()
+    if joined:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return (device, make_local_mesh(model=model_parallel,
+                                    device_type=device.type),
+            dist.get_rank(), joined)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
@@ -60,72 +109,100 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                     help="torch device (default: cuda:0)")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs a device mesh, which is not ported "
-            "yet (ROADMAP: LM stack, the mesh route)")
-    device = resolve_device(args.device)
+    device, mesh, rank, joined = _setup(resolve_device(args.device),
+                                        args.model_parallel)
+    try:
+        return _train(args, device, mesh, rank)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, device: torch.device, mesh, rank: int) -> Dict[str, object]:
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_arch(args.arch, reduced=args.reduced)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    print(f"arch={cfg.name} device={device} attn_impl={cfg.attn_impl}")
+    layout = None if mesh is None else dict(zip(mesh.mesh_dim_names,
+                                                mesh.shape))
+    say(f"arch={cfg.name} device={device} attn_impl={cfg.attn_impl} "
+        f"mesh={layout}")
 
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(
-        args.seed), device)
-    named = dict(params.named_parameters())
-    opt = adamw(cosine_warmup_schedule(args.lr, args.steps // 10 + 1,
-                                       args.steps))
-    opt_state = opt.init(named)
-    print(f"params: {param_count(params)/1e6:.1f}M")
-    step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
+    with use_mesh(mesh):
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(
+            args.seed), device)
+        if mesh is not None:
+            shard_params(params, mesh)
+        named = dict(params.named_parameters())
+        opt = adamw(cosine_warmup_schedule(args.lr, args.steps // 10 + 1,
+                                           args.steps))
+        opt_state = opt.init(named)
+        say(f"params: {param_count(params)/1e6:.1f}M")
+        step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
 
-    start_step = 0
-    mgr = None
-    if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, keep=2)
-        restored = mgr.restore_latest({"params": named, "opt": opt_state})
-        if restored is not None:
-            start_step, tree = restored
-            with torch.no_grad():
-                for k, p in named.items():
-                    p.copy_(tree["params"][k])
-            opt_state = tree["opt"]
-            print(f"restored checkpoint at step {start_step}")
+        start_step = 0
+        mgr = None
+        if args.ckpt_dir:
+            mgr = CheckpointManager(args.ckpt_dir, keep=2)
+            restored = mgr.restore_latest(_full({"params": named,
+                                                 "opt": opt_state}))
+            if restored is not None:
+                start_step, tree = restored
+                with torch.no_grad():
+                    for k, p in named.items():
+                        _load(p, tree["params"][k])
+                    for g in ("m", "v"):
+                        for k, t in opt_state[g].items():
+                            _load(t, tree["opt"][g][k])
+                opt_state["step"] = tree["opt"]["step"]
+                say(f"restored checkpoint at step {start_step}")
 
-    pipe = TokenPipeline(cfg, args.batch, args.seq, seed=args.seed,
-                         depth=args.prefetch_depth, device=device)
-    losses: List[float] = []
-    times: List[float] = []
-    launches0 = ops.kernel_launches()["flash_attention"]
-    loss = float("nan")
-    t_prev = time.perf_counter()
-    for step, batch in enumerate(pipe.batches(args.steps - start_step,
-                                              start=start_step),
-                                 start=start_step):
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])       # waits for the step
-        now = time.perf_counter()
-        dt = now - t_prev
-        t_prev = now
-        losses.append(loss)
-        times.append(dt)
-        if step % 5 == 0 or step == args.steps - 1:
-            print(f"step {step:5d}  loss {loss:.4f}  {dt*1e3:7.1f} ms/step  "
-                  f"{args.batch * args.seq / dt:9.0f} tok/s")
-        if mgr and (step + 1) % args.ckpt_every == 0:
-            mgr.save(step + 1, {"params": named, "opt": opt_state})
-    if mgr:
-        mgr.save(args.steps, {"params": named, "opt": opt_state})
-        mgr.finalize()
+        pipe = TokenPipeline(cfg, args.batch, args.seq, seed=args.seed,
+                             depth=args.prefetch_depth, device=device)
+        losses: List[float] = []
+        times: List[float] = []
+        launches0 = ops.kernel_launches()["flash_attention"]
+        loss = float("nan")
+        t_prev = time.perf_counter()
+        for step, batch in enumerate(pipe.batches(args.steps - start_step,
+                                                  start=start_step),
+                                     start=start_step):
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = _value(metrics["loss"])       # waits for the step
+            now = time.perf_counter()
+            dt = now - t_prev
+            t_prev = now
+            losses.append(loss)
+            times.append(dt)
+            if step % 5 == 0 or step == args.steps - 1:
+                say(f"step {step:5d}  loss {loss:.4f}  {dt*1e3:7.1f} ms/step  "
+                    f"{args.batch * args.seq / dt:9.0f} tok/s")
+            if mgr and (step + 1) % args.ckpt_every == 0:
+                _save(mgr, step + 1, named, opt_state, rank)
+        if mgr:
+            _save(mgr, args.steps, named, opt_state, rank)
+            mgr.finalize()
     med = float(np.median(times[2:])) if len(times) > 3 else float("nan")
-    print(f"done: median {med*1e3:.1f} ms/step, final loss {loss:.4f}")
+    say(f"done: median {med*1e3:.1f} ms/step, final loss {loss:.4f}")
     res: Dict[str, object] = dict(
         arch=cfg.name, device=str(device), start_step=start_step,
         steps=args.steps, losses=losses, ms_per_step=[t * 1e3 for t in times],
         median_ms=med * 1e3, tok_s=args.batch * args.seq / med,
         k8_launches=ops.kernel_launches()["flash_attention"] - launches0)
-    print(json.dumps(res))
+    if mesh is not None:
+        res["mesh"] = layout
+        res["rank"] = rank
+    say(json.dumps(res))
     return res
+
+
+def _save(mgr, step: int, named, opt_state, rank: int) -> None:
+    """Every rank gathers the full state; rank 0 writes it."""
+    tree = _full({"params": named, "opt": opt_state})
+    if rank == 0:
+        mgr.save(step, tree)
 
 
 if __name__ == "__main__":

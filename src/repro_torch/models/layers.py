@@ -20,19 +20,33 @@ Decode runs against a KV cache with an explicit per-slot position array.
 Unlike the reference's pure functions, ``decode_attention`` and
 ``prefill_into_cache`` write the cache in place (a full-width cache is
 hundreds of MB; copying it per token buys nothing when serving) and return
-it.  GQA never materialises repeated KV heads (grouped einsum).  Sharding
-hints (``constrain*``) have no counterpart on one card.
+it.  GQA never materialises repeated KV heads (grouped einsum).
+
+Under a device mesh (``dist.use_mesh``) the tensors are DTensors and the
+reference's sharding constraints (``dist.constrain``) apply at its sites;
+attention runs on each rank's local shard through
+``dist.shard_map_compat`` (``local_map``: the batch over (pod, data), the
+kv heads over ``model`` when it divides them), K8 because a custom op is
+as opaque to DTensor as ``pallas_call`` is to XLA's partitioner, the
+blocked loop because its batched products over (batch, head) would
+flatten two sharded dims.  A DTensor cache is written by a select over its
+slots (``torch.where``) instead of ``index_copy_``, which has no sharding
+rule; still in place.  With no mesh every constraint is the identity.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import (_fit_spec, axis_sizes, constrain,
+                              current_mesh, pspec, shard_map_compat, spec_of)
 from repro_torch.kernels import ops as kops
 
 __all__ = ["rms_norm", "rope", "attention", "decode_attention", "KVCache",
@@ -110,8 +124,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
-    g = hq // hkv
-    qg = q.reshape(b, s, hkv, g, dh)
+    mesh = current_mesh()
+    if mesh is not None and mesh.size() > 1 and isinstance(q, DTensor):
+        # per (batch row, kv head): each rank attends on its shard, the
+        # batch over (pod, data) and the kv heads over model when it divides
+        # them (the reference's K8 specs; its blocked route is partitioned
+        # by XLA)
+        h_ax = ("model" if hkv % axis_sizes(mesh).get("model", 1) == 0
+                else None)
+        qs = _fit_spec(mesh, q.shape, pspec(("pod", "data"), None, h_ax,
+                                            None))
+        ks = _fit_spec(mesh, k.shape, pspec(("pod", "data"), None, h_ax,
+                                            None))
+        return shard_map_compat(
+            lambda q_, k_, v_: _attention(q_, k_, v_, window, q_block, pos0,
+                                          impl),
+            mesh, in_specs=(qs, ks, ks), out_specs=qs)(q, k, v)
+    return _attention(q, k, v, window, q_block, pos0, impl)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int, q_block: int, pos0: int,
+               impl: str) -> torch.Tensor:
+    """``attention`` on plain tensors (one rank's shard under a mesh)."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, dh)
     if impl == "flash" and window == 0 and s > 1:
         out = kops.flash_attention(qg, k, v, min(q_block, s), pos0)
         return out.reshape(b, s, hq, dh)
@@ -186,12 +224,30 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     hkv = k_new.shape[2]
     # the slot is computed on the device: no host sync per layer and token
     write = (cache.pos % cache.capacity).reshape(1).long()
-    cache.k.index_copy_(1, write, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, write, v_new.to(cache.v.dtype))
-    cache.slot_pos.index_copy_(0, write, cache.pos.reshape(1))
+    if isinstance(cache.k, DTensor):
+        at = torch.arange(cache.capacity, device=cache.k.device) == write
+        cache.k.copy_(torch.where(at[:, None, None],
+                                  k_new.to(cache.k.dtype), cache.k))
+        cache.v.copy_(torch.where(at[:, None, None],
+                                  v_new.to(cache.v.dtype), cache.v))
+        cache.slot_pos.copy_(torch.where(at, cache.pos, cache.slot_pos))
+    else:
+        cache.k.index_copy_(1, write, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, write, v_new.to(cache.v.dtype))
+        cache.slot_pos.index_copy_(0, write, cache.pos.reshape(1))
     qg = q.reshape(b, 1, hkv, hq // hkv, dh)
     q_pos = cache.pos.reshape(1)
-    out = _block_attend(qg, cache.k, cache.v, q_pos, cache.slot_pos, window)
+    attend = functools.partial(_block_attend, window=window)
+    if isinstance(cache.k, DTensor) and spec_of(cache.k)[1] is None:
+        # the cache's length unsplit: each rank attends on its rows and
+        # heads as the cache lays them out (a product over two sharded
+        # batch dims has no DTensor rule); a split length stays DTensor's
+        kspec = spec_of(cache.k)
+        qspec = (kspec[0], None, kspec[2], None, None)
+        attend = shard_map_compat(attend, cache.k.device_mesh,
+                                  in_specs=(qspec, kspec, kspec, (None,),
+                                            (None,)), out_specs=qspec)
+    out = attend(qg, cache.k, cache.v, q_pos, cache.slot_pos)
     cache.pos += 1
     return out.reshape(b, 1, hq, dh), cache
 
@@ -218,13 +274,15 @@ def prefill_into_cache(k: torch.Tensor, v: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+    h = F.silu(x @ w1) * (x @ w3)
+    return constrain(h, ("pod", "data"), None, "model") @ w2
 
 
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor,
              w2: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ w1, approximate="tanh") @ w2
+    h = F.gelu(x @ w1, approximate="tanh")
+    return constrain(h, ("pod", "data"), None, "model") @ w2
 
 
 # ---------------------------------------------------------------------- init

@@ -34,7 +34,8 @@ takes, so serving and plain forwards record nothing.  Training works on a
 ``final_norm``, ``lm_head``, ``layers.<i>.<leaf>``,
 ``layers.<i>.moe.<leaf>``, ``layers.<site>.<j>.<leaf>``,
 ``tail.<i>.<leaf>``, ``shared_attn.<leaf>``); the prefill and decode
-steps run under ``torch.inference_mode()``.
+steps run under ``torch.inference_mode()`` (``torch.no_grad()`` under a
+mesh).
 """
 from __future__ import annotations
 
@@ -45,8 +46,12 @@ from typing import Any, Callable, Dict, Iterator, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import (carry_context, constrain, constrain_act,
+                    constrain_act_serve, constrain_proj, constrain_proj_serve,
+                    current_mesh)
 from ..optim.optimizers import apply_updates
 from .layers import (KVCache, attention, decode_attention, gelu_mlp,
                      init_linear, init_rms, rms_norm, rope, swiglu)
@@ -305,16 +310,21 @@ def _attn_apply(cfg: ModelConfig, lp: _Block, x: torch.Tensor,
                 pos0: int):
     b, s, _ = x.shape
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
-    q = (h @ lp.wq).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (h @ lp.wk).reshape(b, s, cfg.n_kv, cfg.hd)
-    v = (h @ lp.wv).reshape(b, s, cfg.n_kv, cfg.hd)
+    q = constrain_proj(h @ lp.wq, cfg.n_heads).reshape(b, s, cfg.n_heads,
+                                                       cfg.hd)
+    k = constrain_proj(h @ lp.wk, cfg.n_kv).reshape(b, s, cfg.n_kv, cfg.hd)
+    v = constrain_proj(h @ lp.wv, cfg.n_kv).reshape(b, s, cfg.n_kv, cfg.hd)
     positions = pos0 + torch.arange(s, device=x.device)
     q = rope(q, positions[None], cfg.rope_theta)
     k = rope(k, positions[None], cfg.rope_theta)
     o = attention(q, k, v, window=cfg.window, q_block=cfg.q_block,
                   pos0=pos0, impl=cfg.attn_impl)
-    x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp.wo
-    return x, (k, v)
+    o = constrain(o.reshape(b, s, cfg.n_heads * cfg.hd), ("pod", "data"),
+                  None, "model")
+    # the residual stream summed over the ranks that split o's features
+    # before the FFN's products (DTensor would carry it on as a partial
+    # sum, which the products' backward cannot take)
+    return _rows(x + o @ lp.wo), (k, v)
 
 
 def _ffn_apply(cfg: ModelConfig, lp: _Block, x: torch.Tensor):
@@ -338,19 +348,30 @@ def _leaves(lp: nn.Module) -> Dict[str, torch.Tensor]:
     return dict(lp.named_parameters())
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """The sequence gathered back before a block's products: tp2d shards
+    block-boundary activations over it (``constrain_act``), and DTensor has
+    no product rule for the rows a flatten of such a tensor gives (a
+    strided shard).  XLA moves the same bytes under the reference's
+    constraints; with no mesh the identity."""
+    return constrain(x, ("pod", "data"), None, None)
+
+
 def _layer(cfg: ModelConfig, lp: nn.Module, x: torch.Tensor):
     """One layer forward (the reference's ``_block_fwd``): ``(x, aux,
-    kv)``, aux and kv None where the layer has none."""
+    kv)``, aux and kv None where the layer has none; the block boundary's
+    activation constraint last."""
+    x = _rows(x)
     if cfg.kind == "rwkv":
-        return rwkv_forward(_leaves(lp), x, lp.ln1, lp.ln2, cfg.hd), None, \
-            None
+        x = rwkv_forward(_leaves(lp), x, lp.ln1, lp.ln2, cfg.hd)
+        return constrain_act(x), None, None
     if cfg.kind == "zamba":                       # one Mamba layer
         y = mamba_forward(_leaves(lp), rms_norm(x, lp.ln, cfg.norm_eps),
                           d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
-        return x + y, None, None
+        return constrain_act(x + y), None, None
     x, kv = _attn_apply(cfg, lp, x, 0)
     x, aux = _ffn_apply(cfg, lp, x)
-    return x, aux, kv
+    return constrain_act(x), aux, kv
 
 
 def _site(cfg: ModelConfig, site: nn.ModuleList, shared: DenseBlock,
@@ -359,9 +380,9 @@ def _site(cfg: ModelConfig, site: nn.ModuleList, shared: DenseBlock,
     and FFN; ``(x, None, kv)``."""
     for lp in site:
         x = _layer(cfg, lp, x)[0]
-    x, kv = _attn_apply(cfg, shared, x, 0)
+    x, kv = _attn_apply(cfg, shared, _rows(x), 0)
     x, _ = _ffn_apply(cfg, shared, x)
-    return x, None, kv
+    return constrain_act(x), None, kv
 
 
 def _embed_inputs(params: LM, cfg: ModelConfig,
@@ -381,7 +402,7 @@ def _embed_inputs(params: LM, cfg: ModelConfig,
     if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
         vis = torch.as_tensor(batch["vision_embeds"], device=dev).to(dt)
         x = torch.cat([vis, x], dim=1)
-    return x
+    return constrain_act(x)
 
 
 def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
@@ -407,8 +428,11 @@ def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
     ks, vs, auxs = [], [], []
     for unit in units:
         if remat:
-            x, aux = checkpoint(lambda h, unit=unit: unit(h)[:2], x,
-                                use_reentrant=False, preserve_rng_state=False)
+            # the recompute runs in the backward: on a card in autograd's
+            # thread, which must see the mesh too
+            body = carry_context(lambda h, unit=unit: unit(h)[:2])
+            x, aux = checkpoint(body, x, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             x, aux, kv = unit(x)
             if return_cache and kv is not None:
@@ -449,17 +473,19 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
     None for RWKV.  Differentiable: it records for autograd where the
     caller does."""
     x, aux, caches = _hidden(params, cfg, batch, return_cache)
-    x = _GradCast.apply(x, cfg.torch_dtype)
+    x = _GradCast.apply(_rows(x), cfg.torch_dtype)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.lm_head, aux, caches
+    logits = constrain(x @ params.lm_head, ("pod", "data"), None, "model")
+    return logits, aux, caches
 
 
 def _mask_padded(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The padded vocab's logits set to -1e30 (a select: DTensor has no
+    rule for filling a slice)."""
     if cfg.vocab_padded == cfg.vocab:
         return logits
-    logits = logits.clone()
-    logits[..., cfg.vocab:] = -1e30
-    return logits
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+    return logits.masked_fill(pad, -1e30)
 
 
 def loss_fn(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
@@ -480,7 +506,14 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
     # position is masked out of the sum
     idx = torch.where(shift_labels < 0, shift_labels + logits.shape[-1],
                       shift_labels)
-    gold = torch.gather(shift_logits, -1, idx[..., None])[..., 0]
+    if isinstance(shift_logits, DTensor):
+        # the vocab dim may be sharded: a select and a sum over it (the
+        # gather on a sharded dim has no rule that keeps the batch's)
+        hit = torch.arange(logits.shape[-1], device=logits.device) \
+            == idx[..., None]
+        gold = torch.where(hit, shift_logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(shift_logits, -1, idx[..., None])[..., 0]
     mask = (shift_labels >= 0).float()
     nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     loss = nll + 0.01 * aux
@@ -513,20 +546,33 @@ def value_and_grad(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
         # embeddings) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, list(named.values()),
                                     allow_unused=True, materialize_grads=True)
+    # under a mesh a gradient comes out partial over the ranks that split
+    # the batch: reduce it here, once, to its parameter's layout
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(g, DTensor) and g.placements != p.placements
+             else g for g, p in zip(grads, named.values())]
     return (loss.detach(), {k: m.detach() for k, m in metrics.items()},
             dict(zip(named, grads)))
 
 
 def _split(batch: Dict[str, Any], n: int) -> list:
-    """The batch cut on its leading axis into ``n`` equal microbatches."""
+    """The batch cut on its leading axis into ``n`` equal microbatches.  A
+    DTensor batch is gathered first and each microbatch laid out as the
+    batch was (the reference's reshape to [n, B/n] moves the same rows)."""
     parts: list = [{} for _ in range(n)]
     for key, a in batch.items():
         t = torch.as_tensor(a)
         if t.shape[0] % n:
             raise ValueError(f"batch of {t.shape[0]} rows does not split "
                              f"into {n} microbatches")
+        layout = None
+        if isinstance(t, DTensor):
+            layout = t.placements
+            t = t.redistribute(t.device_mesh,
+                               [Replicate()] * len(layout))
         for i, piece in enumerate(t.split(t.shape[0] // n)):
-            parts[i][key] = piece
+            parts[i][key] = (piece if layout is None else piece.redistribute(
+                piece.device_mesh, layout))
     return parts
 
 
@@ -566,7 +612,7 @@ def make_train_step(cfg: ModelConfig, optimizer,
         return single
 
     def accumulated(params: LM, opt_state, batch):
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = {k: torch.zeros_like(p, dtype=torch.float32)
                for k, p in params.named_parameters()}
         ms = []
         for one in _split(batch, n):
@@ -583,6 +629,19 @@ def make_train_step(cfg: ModelConfig, optimizer,
     return accumulated
 
 
+class _no_autograd(contextlib.ContextDecorator):
+    """``torch.inference_mode()``, or ``torch.no_grad()`` under a mesh
+    (DTensor's views of tensors made outside inference mode refuse it)."""
+
+    def __enter__(self):
+        self._ctx = (torch.inference_mode() if current_mesh() is None
+                     else torch.no_grad())
+        return self._ctx.__enter__()
+
+    def __exit__(self, *exc):
+        return self._ctx.__exit__(*exc)
+
+
 def make_prefill_step(cfg: ModelConfig):
     """Returns prefill_step(params, batch) -> (last-position logits
     ``[B, 1, vocab_padded]``, caches): ``{"attn_kv": (k, v)}`` stacked over
@@ -590,7 +649,7 @@ def make_prefill_step(cfg: ModelConfig):
     reference, no RWKV or Mamba state is handed on: a decode after it
     starts those from zero, so a stepped prompt is the serving route."""
 
-    @torch.inference_mode()
+    @_no_autograd()
     def prefill_step(params: LM, batch: Dict[str, Any]):
         x, _, caches = _hidden(params, cfg, batch, return_cache=True)
         # Only the last position's logits are returned, so the final norm
@@ -641,9 +700,14 @@ def _attn_step(cfg: ModelConfig, lp: _Block, cache: KVCache,
                x: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
-    q = (h @ lp.wq).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (h @ lp.wk).reshape(b, s, cfg.n_kv, cfg.hd)
-    v = (h @ lp.wv).reshape(b, s, cfg.n_kv, cfg.hd)
+    # q's heads split as [Hkv, G] in decode_attention: sharded by the kv
+    # heads' rule
+    q = constrain_proj_serve(h @ lp.wq, cfg.n_kv).reshape(
+        b, s, cfg.n_heads, cfg.hd)
+    k = constrain_proj_serve(h @ lp.wk, cfg.n_kv).reshape(b, s, cfg.n_kv,
+                                                          cfg.hd)
+    v = constrain_proj_serve(h @ lp.wv, cfg.n_kv).reshape(b, s, cfg.n_kv,
+                                                          cfg.hd)
     pos = cache.pos.reshape(1, 1)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
@@ -662,11 +726,11 @@ def make_serve_step(cfg: ModelConfig):
                           d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
         return x + y
 
-    @torch.inference_mode()
+    @_no_autograd()
     def serve_step(params: LM, cache: Dict[str, Any],
                    batch: Dict[str, Any]):
         tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
-        x = params.embed[tokens.long()]
+        x = constrain_act_serve(params.embed[tokens.long()])
         if cfg.kind == "rwkv":
             for i, lp in enumerate(params.layers):
                 x, _ = rwkv_step(_leaves(lp), cache["rwkv"].layer(i), x,
@@ -683,7 +747,7 @@ def make_serve_step(cfg: ModelConfig):
         else:
             for i, lp in enumerate(params.layers):
                 x = _attn_step(cfg, lp, cache["attn"].layer(i), x)
-                x, _ = _ffn_apply(cfg, lp, x)
+                x = constrain_act_serve(_ffn_apply(cfg, lp, x)[0])
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         return _mask_padded(x @ params.lm_head, cfg), cache
 

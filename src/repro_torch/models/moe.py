@@ -23,15 +23,21 @@ never through an index expanded over the model width (at mixtral's width
 and 4 x 4,096 tokens that index alone would be 2 GB).  The capacity buffer
 is laid out ``[E, B, C, D]`` so the expert products are ``torch.bmm`` over
 the experts with no copy; the reference's is ``[B, E, C, D]``, the same
-numbers.  The mesh branches (``constrain`` and the ``ep`` policy) are the
-identity on one card and are not here.
+numbers.  The reference's mesh branches are here: its ``constrain`` sites,
+and the ``ep`` policy, which shards the capacity buffer over experts on
+the model axis when E divides it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from ..dist import (_fit_spec, axis_sizes, constrain, current_mesh,
+                    current_policy, pspec, shard_map_compat)
 
 __all__ = ["moe_ffn", "init_moe_params", "router_assignment"]
 
@@ -125,47 +131,99 @@ def _routing_indices(logits: torch.Tensor, top_k: int, capacity: int):
     return token_for_slot, slot_valid, slot_for_assign, keep, experts
 
 
+def _dispatch(x: torch.Tensor, logits: torch.Tensor, top_k: int,
+              capacity: int):
+    """Per batch row: route, gather the tokens into the ``[E, B, C, D]``
+    capacity buffer (empty slots zero), and the combine's inputs:
+    ``slot_for_assign`` ``[B, S*K]`` and the kept gate weights ``wk``
+    ``[B, S, K]`` in ``x``'s dtype."""
+    b, s, d = x.shape
+    e = logits.shape[-1]
+    with torch.no_grad():
+        token_for_slot, slot_valid, slot_for_assign, keep, experts = \
+            _routing_indices(logits, top_k, capacity)
+    gate_logits = torch.gather(logits, -1, experts)             # [B, S, K]
+    weights = torch.softmax(gate_logits.float(), dim=-1)
+    # a gather on the token axis into the [E, B, C, D] buffer
+    rows = torch.arange(b, device=x.device)
+    tok = token_for_slot.reshape(b, e, capacity).permute(1, 0, 2)
+    xe = x[rows[None, :, None], tok]                            # [E, B, C, D]
+    valid = slot_valid.reshape(b, e, capacity).permute(1, 0, 2)
+    xe = xe.masked_fill(~valid[..., None], 0)
+    wk = (weights * keep.reshape(b, s, top_k)).to(x.dtype)
+    return xe, slot_for_assign, wk
+
+
+def _combine(ye: torch.Tensor, slot_for_assign: torch.Tensor,
+             wk: torch.Tensor) -> torch.Tensor:
+    """Per batch row: each assignment's slot output of ``ye`` ``[E, B, C,
+    D]``, weighted over K -> ``[B, S, D]``."""
+    _, b, capacity, d = ye.shape
+    s, top_k = wk.shape[1], wk.shape[2]
+    rows = torch.arange(b, device=ye.device)
+    ya = ye[slot_for_assign // capacity, rows[:, None],
+            slot_for_assign % capacity]                         # [B, S*K, D]
+    return torch.bmm(wk.reshape(b * s, 1, top_k),
+                     ya.reshape(b * s, top_k, d)).reshape(b, s, d)
+
+
 def moe_ffn(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
             top_k: int, capacity_factor: float = 1.25
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: ``[B, S, D]`` -> (out ``[B, S, D]``, aux loss, a 0-d f32 tensor).
 
     Router logits and the expert products run in ``x``'s dtype; the
-    load-balancing aux and the gate softmax in f32.
+    load-balancing aux and the gate softmax in f32.  Under a mesh the
+    routing, dispatch and combine run per rank on its batch rows
+    (``shard_map_compat``: the index math has no sharding rules and is
+    rank-local, as in the reference), and the expert products are DTensor
+    products under the reference's constraints.
     """
     b, s, d = x.shape
     e = params["router"].shape[1]
     capacity = _capacity(s, e, top_k, capacity_factor)
-    logits = x @ params["router"].to(x.dtype)                   # [B, S, E]
+    x = constrain(x, ("pod", "data"), None, None)
+    # [B, S, E]; every expert's logit beside its row (the routing reads
+    # them per row); the identity with no mesh
+    logits = constrain(x @ params["router"].to(x.dtype), ("pod", "data"),
+                       None, None)
     # load-balancing aux loss per group (= batch row), as in Switch:
     # E * sum_e f_e(row) p_e(row), averaged over rows; it decomposes over
     # microbatches
     probs = torch.softmax(logits.float(), dim=-1)
     top1 = torch.argmax(logits, dim=-1)                  # the first maximum
-    fe = F.one_hot(top1, e).float().mean(1)                     # [B, E]
+    fe = (top1[..., None] == torch.arange(e, device=x.device)
+          ).float().mean(1)                                     # [B, E]
     aux = (e * torch.sum(fe * probs.mean(1), dim=-1)).mean()
 
-    with torch.no_grad():
-        token_for_slot, slot_valid, slot_for_assign, keep, experts = \
-            _routing_indices(logits, top_k, capacity)
-    gate_logits = torch.gather(logits, -1, experts)             # [B, S, K]
-    weights = torch.softmax(gate_logits.float(), dim=-1)
+    mesh = current_mesh()
+    dispatch = functools.partial(_dispatch, top_k=top_k, capacity=capacity)
+    combine = _combine
+    ep = False
+    if mesh is not None and mesh.size() > 1 and isinstance(x, DTensor):
+        msize = axis_sizes(mesh).get("model", 1)
+        # expert parallelism ('ep', E % |model| == 0): the capacity buffer
+        # is sharded over experts on the model axis
+        ep = current_policy() == "ep" and msize > 1 and e % msize == 0
+        xs = _fit_spec(mesh, x.shape, pspec(("pod", "data"), None, None))
+        b_ax = xs[0]
+        dispatch = shard_map_compat(
+            dispatch, mesh, in_specs=(xs, xs),
+            out_specs=[(None, b_ax, None, None), (b_ax, None),
+                       (b_ax, None, None)])
+        combine = shard_map_compat(
+            _combine, mesh,
+            in_specs=((None, b_ax, None, None), (b_ax, None),
+                      (b_ax, None, None)), out_specs=xs)
+    e_ax = "model" if ep else None
+    f_ax = None if ep else "model"
 
-    # dispatch: a gather on the token axis into the [E, B, C, D] buffer
-    rows = torch.arange(b, device=x.device)
-    tok = token_for_slot.reshape(b, e, capacity).permute(1, 0, 2)
-    xe = x[rows[None, :, None], tok]                            # [E, B, C, D]
-    valid = slot_valid.reshape(b, e, capacity).permute(1, 0, 2)
-    xe = xe.masked_fill(~valid[..., None], 0).reshape(e, b * capacity, d)
-
+    xe, slot_for_assign, wk = dispatch(x, logits)
+    xe = constrain(xe, e_ax, ("pod", "data"), None, None)       # [E, B, C, D]
+    xe = xe.reshape(e, b * capacity, d)
     w1, w3, w2 = (params[n].to(x.dtype) for n in ("w1", "w3", "w2"))
     h = F.silu(torch.bmm(xe, w1)) * torch.bmm(xe, w3)           # [E, BC, F]
-    ye = torch.bmm(h, w2).reshape(e, b, capacity, d)
-
-    # combine: each assignment's slot output, weighted over K
-    ya = ye[slot_for_assign // capacity, rows[:, None],
-            slot_for_assign % capacity]                         # [B, S*K, D]
-    wk = (weights * keep.reshape(b, s, top_k)).to(x.dtype)
-    out = torch.bmm(wk.reshape(b * s, 1, top_k),
-                    ya.reshape(b * s, top_k, d)).reshape(b, s, d)
-    return out, aux
+    h = constrain(h, e_ax, ("pod", "data"), f_ax)
+    ye = constrain(torch.bmm(h, w2), e_ax, ("pod", "data"), None)
+    out = combine(ye.reshape(e, b, capacity, d), slot_for_assign, wk)
+    return constrain(out, ("pod", "data"), None, None), aux

@@ -24,12 +24,16 @@ the cache in place (as ``layers.decode_attention`` does) and returns it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import (_fit_spec, axis_sizes, constrain, current_mesh, pspec,
+                    shard_map_compat)
 from .layers import rms_norm
 
 __all__ = ["init_rwkv_params", "rwkv_forward", "rwkv_step", "RWKVCache",
@@ -81,6 +85,14 @@ def init_rwkv_params(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def _hidden_rows(h: torch.Tensor) -> torch.Tensor:
+    """A [B, T, F] input of a product with its rows over (pod, data) only
+    and F over model, as the reference constrains an MLP's hidden: under a
+    mesh DTensor may have split the rows over model too (a strided shard
+    no product rule takes).  The identity without a mesh."""
+    return constrain(h, ("pod", "data"), None, "model")
+
+
 def _token_shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     """[B, S, D] -> the previous-token tensor; x_prev is the t = -1 row."""
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
@@ -104,9 +116,11 @@ def _wkv_inputs(params: Params, x: torch.Tensor, xp: torch.Tensor,
     v = proj(2, "w_v").reshape(b, t, h, head_dim)
     g = F.silu(proj(4, "w_g"))
     # the data-dependent decay (low rank), in f32
-    w = params["w0"] + torch.tanh(
-        lerp(3).float() @ params["w_lora_a"].float()) \
-        @ params["w_lora_b"].float()
+    # both low-rank products' outputs laid out as rows x features, so the
+    # sum with w0 (features over model) adds no partial sums
+    w = params["w0"] + _hidden_rows(_hidden_rows(torch.tanh(
+        lerp(3).float() @ params["w_lora_a"].float()))
+        @ params["w_lora_b"].float())
     w = torch.exp(-torch.exp(w)).reshape(b, t, h, head_dim)  # in (0, 1)
     return r, k, v, g, w
 
@@ -201,12 +215,24 @@ def rwkv_time_mix(params: Params, x: torch.Tensor, x_prev: torch.Tensor,
     """x: [B, S, D]; returns (out, last x, s_T)."""
     xp = _token_shift(x, x_prev)
     r, k, v, g, w = _wkv_inputs(params, x, xp, head_dim)
-    if x.shape[1] > 1:
-        y, s_t = _wkv_chunked(r, k, v, w, params["u"], s0, chunk)
-    else:
-        y, s_t = _wkv_scan(r, k, v, w, params["u"], s0)
+    wkv = (functools.partial(_wkv_chunked, chunk=chunk) if x.shape[1] > 1
+           else _wkv_scan)
+    mesh = current_mesh()
+    if mesh is not None and mesh.size() > 1 and isinstance(r, DTensor):
+        # per (batch row, head): each rank runs the recurrence on its own
+        # rows and heads
+        h = r.shape[2]
+        h_ax = "model" if h % axis_sizes(mesh).get("model", 1) == 0 \
+            else None
+        rs = _fit_spec(mesh, r.shape, pspec(("pod", "data"), None, h_ax,
+                                            None))
+        ss = (rs[0], rs[2], None, None)
+        wkv = shard_map_compat(wkv, mesh,
+                               in_specs=(rs, rs, rs, rs, (rs[2], None), ss),
+                               out_specs=[rs, ss])
+    y, s_t = wkv(r, k, v, w, params["u"], s0)
     y = _group_norm(y, params["ln_g"], head_dim).to(x.dtype)
-    out = (y * g) @ params["w_o"].to(x.dtype)
+    out = _hidden_rows(y * g) @ params["w_o"].to(x.dtype)
     return out, x[:, -1], s_t
 
 
@@ -216,7 +242,7 @@ def rwkv_channel_mix(params: Params, x: torch.Tensor, x_prev: torch.Tensor
     mix = params["mix_c"].to(x.dtype)
     xk = x + (xp - x) * mix[0]
     xr = x + (xp - x) * mix[1]
-    kk = torch.square(F.relu(xk @ params["c_k"].to(x.dtype)))
+    kk = _hidden_rows(torch.square(F.relu(xk @ params["c_k"].to(x.dtype))))
     out = torch.sigmoid(xr @ params["c_r"].to(x.dtype)) \
         * (kk @ params["c_v"].to(x.dtype))
     return out, x[:, -1]

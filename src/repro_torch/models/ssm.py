@@ -22,12 +22,15 @@ the port's writes the cache in place and returns it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import _fit_spec, axis_sizes, current_mesh, pspec, shard_map_compat
 from .layers import rms_norm
 
 __all__ = ["init_mamba_params", "mamba_forward", "mamba_step", "MambaCache",
@@ -122,6 +125,36 @@ def _ssd_chunk(h_in, xck, bck, cck, dtk, alk):
     return h_out, y_intra + y_inter
 
 
+def _ssd(xs: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+         dt: torch.Tensor, a_log: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The chunked SSD from a zero state: xs [B, S, H, P], bm / cm [B, S,
+    N], dt / a_log [B, S, H] (f32) -> y [B, S, H, P] f32.  Under autograd
+    each chunk is recomputed in the backward."""
+    b, s, n_heads, head_dim = xs.shape
+    d_state = bm.shape[-1]
+    q = min(chunk, s)
+    assert s % q == 0, (s, q)
+    nc = s // q
+
+    def rs(t: torch.Tensor) -> torch.Tensor:   # [B, S, ...] -> [B, nc, Q, ...]
+        return t.reshape(b, nc, q, *t.shape[2:])
+
+    xs_c, b_c, c_c, dt_c, al_c = (rs(t) for t in (xs, bm, cm, dt, a_log))
+    remat = torch.is_grad_enabled()
+    h = torch.zeros((b, n_heads, head_dim, d_state), dtype=torch.float32,
+                    device=xs.device)
+    ys = []
+    for c in range(nc):
+        args = (h, xs_c[:, c], b_c[:, c], c_c[:, c], dt_c[:, c], al_c[:, c])
+        if remat:
+            h, y = checkpoint(_ssd_chunk, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            h, y = _ssd_chunk(*args)
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(b, s, n_heads, head_dim)
+
+
 def mamba_forward(params: Params, x: torch.Tensor, *, d_state: int,
                   head_dim: int = 64, chunk: int = 128) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D] (the training / prefill route, chunked
@@ -141,27 +174,21 @@ def mamba_forward(params: Params, x: torch.Tensor, *, d_state: int,
     dt = _softplus(dt.float() + params["dt_bias"])           # [B, S, H]
     a_log = -torch.exp(params["A_log"]) * dt                 # log a_t <= 0
 
-    q = min(chunk, s)
-    assert s % q == 0, (s, q)
-    nc = s // q
-
-    def rs(t: torch.Tensor) -> torch.Tensor:   # [B, S, ...] -> [B, nc, Q, ...]
-        return t.reshape(b, nc, q, *t.shape[2:])
-
-    xs_c, b_c, c_c, dt_c, al_c = (rs(t) for t in (xs, bm, cm, dt, a_log))
-    remat = torch.is_grad_enabled()
-    h = torch.zeros((b, n_heads, head_dim, d_state), dtype=torch.float32,
-                    device=x.device)
-    ys = []
-    for c in range(nc):
-        args = (h, xs_c[:, c], b_c[:, c], c_c[:, c], dt_c[:, c], al_c[:, c])
-        if remat:
-            h, y = checkpoint(_ssd_chunk, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            h, y = _ssd_chunk(*args)
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, s, n_heads, head_dim)
+    ssd = functools.partial(_ssd, chunk=chunk)
+    mesh = current_mesh()
+    if mesh is not None and mesh.size() > 1 and isinstance(xs, DTensor):
+        # per (batch row, head): each rank scans its own rows and heads;
+        # B and C are shared by the heads
+        h_ax = "model" if n_heads % axis_sizes(mesh).get("model", 1) == 0 \
+            else None
+        xsp = _fit_spec(mesh, xs.shape, pspec(("pod", "data"), None, h_ax,
+                                              None))
+        bsp = (xsp[0], None, None)
+        hsp = (xsp[0], None, xsp[2])
+        ssd = shard_map_compat(ssd, mesh,
+                               in_specs=(xsp, bsp, bsp, hsp, hsp),
+                               out_specs=xsp)
+    y = ssd(xs, bm, cm, dt, a_log)
     y = y + params["D"][:, None] * xs.float()
     y = y.reshape(b, s, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"])

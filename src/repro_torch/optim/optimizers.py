@@ -15,7 +15,8 @@ differ from JAX's:
 * SGD's momentum buffer ``mu`` starts in the parameters' dtype and takes
   the dtype of ``momentum * mu + g``; the Python ``momentum`` is rounded to
   ``mu``'s dtype first, as JAX does with a weak scalar;
-* AdamW's moments are f32 and live on the parameters' device; the bias
+* AdamW's moments are f32 and live on the parameters' device (a DTensor
+  parameter's moments are DTensors of its placements); the bias
   corrections are taken in f32 (``:69-87`` of the reference); the square
   root is the correctly rounded one on the host too (``_sqrt``).
 
@@ -115,10 +116,10 @@ def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
     def init(params: Tensors) -> State:
         return {
             "step": 0,
-            "m": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for k, p in params.items()},
+            "m": {k: torch.zeros_like(p, dtype=torch.float32)
+                  for k, p in params.items()},
+            "v": {k: torch.zeros_like(p, dtype=torch.float32)
+                  for k, p in params.items()},
         }
 
     def update(grads: Tensors, state: State,

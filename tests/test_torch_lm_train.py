@@ -460,7 +460,12 @@ def test_train_cli_default_device_requires_cuda(monkeypatch):
         train_cli.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1"])
 
 
-def test_train_cli_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="ROADMAP: LM stack, the "
-                                                  "mesh route"):
-        train_cli.main(CLI + ["--steps", "1", "--model-parallel", "2"])
+def test_train_cli_refuses_model_parallel(capsys):
+    """(The name is kept from when the port refused the flag.)  One process
+    has no mesh, as in the reference (``repro/launch/train.py:46-47``):
+    ``--model-parallel 2`` runs, with the losses of a run without it."""
+    with_flag = train_cli.main(CLI + ["--steps", "3", "--model-parallel",
+                                      "2"])
+    without = train_cli.main(CLI + ["--steps", "3"])
+    assert "mesh" not in with_flag
+    assert with_flag["losses"] == without["losses"]
