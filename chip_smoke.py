@@ -3558,8 +3558,8 @@ def mesh_rank(rank: int, store: str, q) -> None:
         res = _mesh_rank_run(rank)
         dist.barrier()
         dist.destroy_process_group()
-    except BaseException:
-        res = {"error": traceback.format_exc()[-3000:]}
+    except BaseException as e:
+        res = {"error": "".join(traceback.format_exception(e))[-3000:]}
     q.put((rank, res))
 
 

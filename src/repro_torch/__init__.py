@@ -7,7 +7,15 @@ PyTorch versions and the dispatching wrappers), ``optim/``, ``core/``
 LM stack: ``models/``, ``data/`` (the token pipeline) and ``launch/``.  The
 package imports torch and numpy and nothing of ``repro`` or JAX; entry
 points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
+Importing the package itself imports no torch (``python -m
+repro_torch.analysis`` needs none): its two names load ``device`` on first
+use.
 """
-from .device import accel_devices, resolve_device
-
 __all__ = ["resolve_device", "accel_devices"]
+
+
+def __getattr__(name: str):
+    if name in __all__:
+        from . import device
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers and
-tests (port of ``repro/configs/registry.py``'s ``ARCHS`` and ``get_arch``;
-the dry-run shapes wait for the mesh slice)."""
+tests (port of ``repro/configs/registry.py``), with the input shapes'
+names re-exported and ``all_cells`` over every (arch, shape) cell."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -10,8 +10,10 @@ from repro_torch.models.lm import ModelConfig
 from . import (internvl2_1b, llama3_2_1b, llama4_scout_17b_a16e,
                minitron_4b, mixtral_8x22b, musicgen_medium, rwkv6_1_6b,
                smollm_135m, smollm_360m, zamba2_7b)
+from .shapes import SHAPES, ShapeSpec, cell_applicable, input_specs
 
-__all__ = ["ARCHS", "get_arch"]
+__all__ = ["ARCHS", "get_arch", "SHAPES", "ShapeSpec", "cell_applicable",
+           "input_specs", "all_cells"]
 
 _MODULES = {
     "mixtral-8x22b": mixtral_8x22b,
@@ -36,3 +38,11 @@ def get_arch(name: str, reduced: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     full, red = ARCHS[name]
     return red if reduced else full
+
+
+def all_cells():
+    """Yield every (arch_name, cfg, shape_spec, runnable, skip_reason)."""
+    for name, (full, _) in ARCHS.items():
+        for shape in SHAPES.values():
+            ok, reason = cell_applicable(full, shape)
+            yield name, full, shape, ok, reason

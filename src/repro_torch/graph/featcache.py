@@ -385,7 +385,7 @@ class FeatureCache:
                 # placed under the lock so two trainer threads never ship
                 # the same [K, F] block twice; once per (device, version).
                 # A pageable host->device copy is complete on return
-                entry = (host.to(device), None)
+                entry = (host.to(device), None)  # noqa: RPT103 - memoized once per (device, version)
                 self._device_data[key] = entry
                 self._devices[str(device)] = device
         block, ready = entry
@@ -734,7 +734,7 @@ class FeatureCache:
         stream = torch.cuda.current_stream(dev)
         if ready is not None:
             stream.wait_event(ready)
-        block = update_cache_rows(cur, rows.to(dev), slots,
+        block = update_cache_rows(cur, rows.to(dev), slots,  # noqa: RPT103 - atomic O(swap) commit by design
                                   self.kernel_pipeline_depth)
         cur.record_stream(stream)
         done = torch.cuda.Event()

@@ -306,7 +306,7 @@ class WindowPrefetcher:
         with self._cv:
             # the predicate lambda runs with _cv re-acquired by wait_for
             return self._cv.wait_for(
-                lambda: (self._pending == 0  # noqa: RPR101 - locked by wait_for
+                lambda: (self._pending == 0  # noqa: RPR101, RPT101 - locked by wait_for
                          or self.error is not None
                          or not self._thread.is_alive()),
                 timeout)

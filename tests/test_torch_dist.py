@@ -41,6 +41,7 @@ import repro.dist as rdist
 import repro.launch.cellspecs as rcell
 from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import SHAPES as REF_SHAPES
+from repro.configs import all_cells as ref_all_cells
 from repro.configs import cell_applicable as ref_applicable
 from repro.configs import input_specs as ref_input_specs
 from repro.dist.sharding import param_pspec as ref_param_pspec
@@ -49,7 +50,9 @@ from repro.launch.dryrun import resolve_policy as ref_resolve
 from repro.models import init_decode_cache as ref_init_decode_cache
 from repro.models import init_params as ref_init_params
 from repro_torch import dist as tdist
-from repro_torch.configs import ARCHS, SHAPES, cell_applicable, input_specs
+from repro_torch.configs import (ARCHS, SHAPES, all_cells, cell_applicable,
+                                 input_specs)
+from repro_torch.configs import registry as tregistry
 from repro_torch.dist.sharding import param_pspec, stack_sizes
 from repro_torch.launch import cellspecs as tcell
 from repro_torch.launch.analysis import model_flops_total
@@ -249,6 +252,26 @@ def test_batch_cache_and_prefill_rules_match_reference(arch, mesh_name,
             with tdist.use_policy(policy):
                 got = tcell._cache_pspec(n, leaf.shape, tcfg, tsh, tmesh)
             assert got == want, (name, g, n)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_all_cells_match_reference(arch):
+    """The registry's ``all_cells``: the same (arch, shape, runnable,
+    reason) for every shape, in the reference's order, with the arch's
+    full config and the shared ``SHAPES`` entry."""
+    def cells(gen):
+        return [(name, shape.name, ok, reason)
+                for name, _, shape, ok, reason in gen if name == arch]
+
+    want = cells(ref_all_cells())
+    assert [c[1] for c in want] == list(REF_SHAPES)
+    assert cells(all_cells()) == want
+    for name, cfg, shape, _, _ in all_cells():
+        if name == arch:
+            assert cfg is ARCHS[arch][0] and shape is SHAPES[shape.name]
+    for n in ("SHAPES", "ShapeSpec", "cell_applicable", "input_specs",
+              "all_cells"):
+        assert n in tregistry.__all__
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
