@@ -1,7 +1,8 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card, and across up to
+four when more are visible.
 
     python3 chip_smoke.py [--scale 1.0] [--iters 10] [--out DIR]
-                          [--spill-dir DIR]
+                          [--spill-dir DIR] [--cards N]
 
 Builds the port's hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each kernel against its plain PyTorch version on
@@ -251,6 +252,48 @@ Phases, each printing one JSON line:
                flat path) equal to a flat all_reduce mean, the identity on
                a mesh of one; (d) python -m repro_torch.launch.train
                --model-parallel 2 in one process: no mesh, K8 launched
+  multicard    the paths that exist only across cards, on min(visible, 4)
+               cards (one card visible: one line, {"phase": "multicard",
+               "skipped": "1 card visible"}; --cards N exits non-zero
+               first when fewer than N are visible): (a) the slice at
+               n_accel=4, one accelerator trainer a card (accelerator i on
+               cuda:i), the CPU trainer on the host: with the DRM off, 8
+               iterations, layer-0 inputs, losses and final parameters
+               bit-equal to all four on cuda:0, each card launching K1
+               once and K2 twice for each of its own batches; then the DRM
+               on, 30 iterations, on one card and on four: the medians of
+               the iteration time, MTEPS and every stage, the shares
+               (finite losses, shares adding up to 1,024); (b) the shard
+               phase's configuration one shard a card at
+               kernel_pipeline_depth 1 and 2, replicated, sharded, and
+               sharded all on cuda:0: inputs and losses bit-equal,
+               feature_traffic() equal to one card's, each card launching
+               K1 (K4) once for each of its combines and each peer gather
+               it owns; then the cache refreshing at every boundary at
+               tfp_depth 0, replicated against sharded at both depths:
+               losses equal, each shard's K5 (K6) scatters on its own card;
+               a peer gather's rows (6,524 x 100 f32) and 256 MiB copied
+               card 1 -> card 0, GB/s beside the perf model's 450; (c)
+               the LM training CLI under torchrun, one rank a card over
+               NCCL, llama3.2-1b at full width and depth (bf16, flash,
+               remat), 3 AdamW steps of a global 4 x 4096 batch, one
+               microbatch a rank, on a (4, 1) and a (2, 2) mesh
+               (--model-parallel 1 and 2): each rank's losses within the
+               lm_train bound of the one-process CLI on cuda:0 (the batch
+               in 4 microbatches), 32 K8 launches a step (16 layers,
+               forward and recompute), the parameters' layout kept, ms a
+               step and peak memory a rank; hierarchical_psum_mean of the
+               ranks' own f32 gradient trees on a (4, 1) and a (2, 2, 1)
+               pod mesh against a flat all_reduce mean: within
+               PSUM_ULP_TOL ulp of the summands' scale an element, the
+               elements that differ counted.  Each card's K1/K2/K4/K5/
+               K6/K8 launches and its links (nvidia-smi topo -m) on a line
+               of its own; ranks are spawned processes, each launch under
+               a time limit, and a rank that fails fails the run
+
+The phases before multicard place logical accelerator i on cuda:(i % the
+visible cards), as the trainer does: on one card every accelerator shares
+cuda:0; with more cards visible their accelerators spread as multicard's do.
 
 The kernels phase also holds K8 (flash attention) against its plain version
 at the prefill's shape in f32 (the FMA body) and bf16 (the tensor-core
@@ -3815,6 +3858,582 @@ def phase_mesh(dev: torch.device, work: Path, early: list) -> dict:
     return res
 
 
+# The multicard phase: the paths that exist only across cards.
+MC_CARDS = 4                  # the phase runs on min(visible, MC_CARDS)
+MC_EQUAL_ITERS = 8            # (a) bit-equality, DRM off
+MC_DRM_ITERS = 30             # (a) readings, the paper's DRM on
+MC_SHARD_ITERS = 6            # (b), as the shard phase
+MC_REFRESH_ITERS = 4          # (b)'s refresh runs (tfp_depth 0)
+# (c) the LM mesh route under torchrun: llama3.2-1b at full width and
+# depth (bf16, flash, remat), a global batch of 4 x 4096 tokens, 3 AdamW
+# steps through the training CLI, one microbatch a rank; the one-process
+# run takes the same batch in 4 microbatches, as the lm_train phase
+MC_LM_ARGS = ("--arch", LM_ARCH, "--steps", "3", "--batch", "4", "--seq",
+              "4096", "--attn-impl", "flash")
+MC_LM_LAYOUTS = (("dp", 1), ("tp2d", 2))      # --model-parallel
+MC_RANK_TIMEOUT = 300         # seconds a launch of ranks may take
+# (c) the hierarchical mean against a flat all-reduce mean of four ranks'
+# f32 gradient trees: the two sum each element's four summands in other
+# orders (NCCL's rings start each chunk at another rank), so they may
+# differ by the rounding of a reordered sum, at most a few ulp of the
+# summands' scale (recursive summation of n terms: (n - 1) u sum|x| each).
+# PSUM_ULP_TOL bounds |hierarchical - flat| in ulp of mean|x| an element;
+# the distance in ulp of the flat result is reported beside it (a sum
+# that cancels has a result far below its summands).
+PSUM_ULP_TOL = 4
+MC_KERNELS = ("cache_combine", "fused_update", "cache_combine_pipelined",
+              "cache_update", "cache_update_pipelined", "flash_attention")
+
+
+def topology(cards: int) -> dict:
+    """The links between the first ``cards`` cards: ``nvidia-smi topo
+    -m``'s matrix and the entry for each pair (e.g. ``NV18``: 18 NVLinks),
+    each card's NVLinks and their summed rate (``nvidia-smi nvlink
+    --status``), and whether each card can reach each other's memory.  A
+    query the machine refuses is recorded with its exit code, not
+    raised."""
+    def smi(*args):
+        p = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                           text=True)
+        return p.returncode, (p.stdout or p.stderr).strip().splitlines()
+
+    rc, matrix = smi("topo", "-m")
+    rows = [ln.split() for ln in matrix if ln.startswith("GPU")] \
+        if rc == 0 else []
+    links = {f"{i}-{j}": rows[i][1 + j] if len(rows) > i
+             and len(rows[i]) > 1 + j else None
+             for i in range(cards) for j in range(i + 1, cards)}
+    nvlink = {}
+    for c in range(cards):
+        nvl_rc, status = smi("nvlink", "--status", "-i", str(c))
+        rates = [float(ln.split(":")[1].split()[0]) for ln in status
+                 if ln.strip().startswith("Link ") and "GB/s" in ln]
+        nvlink[c] = dict(rc=nvl_rc, links=len(rates), gbps=sum(rates))
+    peer = {f"{i}-{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in range(cards) for j in range(cards) if i != j}
+    return dict(links=links, topo_rc=rc, matrix=matrix, nvlink=nvlink,
+                peer_access=peer)
+
+
+def mc_run(ds, gnn, cfg, iters: int, weights=None,
+           one_card: bool = False) -> dict:
+    """One training run of ``iters`` iterations: with its accelerators one
+    a card (logical accelerator i on ``cuda:i % count``), or, with
+    ``one_card``, all on ``cuda:0``.  Records the layer-0 inputs, losses,
+    final parameters, feature traffic, stage times and the launches of
+    each kernel on each card, with what each card should have launched:
+    a combine for each accelerator batch on the reader's card, a peer
+    gather (sharded plane) on the owner's card, and a refresh scatter on
+    each card the cache block was placed on."""
+    from repro_torch.core import HybridGNNTrainer
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    tr = HybridGNNTrainer(ds, gnn, cfg)
+    if one_card:
+        tr.accel_devices = [torch.device("cuda", 0)] * cfg.n_accel
+    card = {f"accel{i}": tr._accel_device(f"accel{i}").index
+            for i in range(cfg.n_accel)}
+    build_s = time.perf_counter() - t0
+    if weights is not None:
+        tr.set_params(weights)
+    init = {k: v.cpu().numpy() for k, v in tr.params.items()}
+    inputs = spy_inputs(tr)
+    peer_gathers: dict = {}          # owner card -> peer gathers
+    if tr._sharded:
+        orig = tr._assemble_sharded
+
+        def assemble(block, dev):
+            for peer, _, _ in block.shard.peer_requests:
+                c = card[f"accel{peer}"]
+                peer_gathers[c] = peer_gathers.get(c, 0) + 1
+            return orig(block, dev)
+        tr._assemble_sharded = assemble
+    scatters: dict = {}              # card -> refresh scatters
+    shard_cards: dict = {}           # shard -> cards it was scattered on
+    blocks = (tr.cache.shards if tr._sharded
+              else [tr.cache] if tr.cache is not None else [])
+    for i, c in enumerate(blocks):
+        def scatter(entry, rows, slots, dev, orig=c._scatter_block, i=i):
+            scatters[dev.index] = scatters.get(dev.index, 0) + 1
+            shard_cards.setdefault(i, set()).add(dev.index)
+            return orig(entry, rows, slots, dev)
+        c._scatter_block = scatter
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    hist = tr.train(iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.kernel_launches_by_device()
+    tr.close()
+    combines: dict = {}              # reader card -> combines
+    for m in hist:
+        for n, b in m.shares.items():
+            if n != "cpu" and b > 0:
+                combines[card[n]] = combines.get(card[n], 0) + 1
+    res = dict(
+        cards=card, build_s=build_s, wall_s=wall,
+        losses=[m.loss for m in hist], shares=[m.shares for m in hist],
+        iter_s=[m.iter_time for m in hist], mteps=[m.mteps for m in hist],
+        stages=[{k: getattr(m.times, k) for k in STAGES} for m in hist],
+        traffic=tr.feature_traffic(), combines=combines,
+        peer_gathers=peer_gathers, scatters=scatters,
+        shard_cards={i: sorted(s) for i, s in shard_cards.items()},
+        launches={k: launches[k] for k in MC_KERNELS if launches[k]},
+        cache_version=tr.cache.version if tr.cache is not None else 0,
+        inputs=inputs, params=dict(tr.params), init=init)
+    return res
+
+
+def same_run(a: dict, b: dict, what: str) -> None:
+    """``a`` and ``b`` trained alike: the same losses, and every layer-0
+    input of every trainer bit for bit (wherever each lies)."""
+    check(a["losses"] == b["losses"], f"{what}: losses {a['losses']} vs "
+          f"{b['losses']}")
+    check(sorted(a["inputs"]) == sorted(b["inputs"]),
+          f"{what}: iterations differ")
+    for it, xs in a["inputs"].items():
+        ys = b["inputs"][it]
+        check(sorted(xs) == sorted(ys), f"{what}: trainers of iteration "
+              f"{it} differ")
+        for n, x in xs.items():
+            check(same_bits(x, ys[n].to(x.device)), f"{what}: layer-0 "
+                  f"input of {n} at iteration {it} differs")
+
+
+def check_card_launches(r: dict, depth: int, what: str) -> None:
+    """Each card launched the combine kernel of ``depth`` (K1 at 1, K4
+    above) once for each of its own batches and each peer gather it owned,
+    K2 twice a batch (one a layer), and the refresh kernel (K5 at 1, K6
+    above) once for each scatter of a block placed on it."""
+    combine, other = (("cache_combine", "cache_combine_pipelined")
+                      if depth == 1 else
+                      ("cache_combine_pipelined", "cache_combine"))
+    cards = set(r["combines"]) | set(r["peer_gathers"])
+    want = {c: r["combines"].get(c, 0) + r["peer_gathers"].get(c, 0)
+            for c in cards}
+    got = r["launches"].get(combine, {})
+    check(got == want, f"{what}: {combine} by card {got}, expected {want} "
+          f"(combines {r['combines']} + peer gathers {r['peer_gathers']})")
+    check(not r["launches"].get(other), f"{what}: {other} launched "
+          f"{r['launches'].get(other)}")
+    k2 = r["launches"].get("fused_update", {})
+    check(k2 == {c: 2 * n for c, n in r["combines"].items()},
+          f"{what}: K2 by card {k2}, combines {r['combines']}")
+    update = "cache_update" if depth == 1 else "cache_update_pipelined"
+    check(r["launches"].get(update, {}) == r["scatters"],
+          f"{what}: {update} by card {r['launches'].get(update)}, "
+          f"scatters {r['scatters']}")
+
+
+def strip(r: dict) -> dict:
+    """A run's readings for the phase line: the stage times, iteration
+    times and MTEPS as medians, the tensors left out."""
+    out = {k: v for k, v in r.items() if k not in (
+        "inputs", "params", "init", "stages", "iter_s", "mteps")}
+    out["median"] = {k: statistics.median(s[k] for s in r["stages"])
+                     for k in STAGES}
+    out["median"].update(iter_s=statistics.median(r["iter_s"]),
+                         mteps=statistics.median(r["mteps"]))
+    return out
+
+
+def mc_gnn(ds, sage, slice_cfg, cards: int) -> dict:
+    """(a) one accelerator trainer a card: the slice at n_accel=4 with the
+    DRM off, one a card against all on cuda:0 (inputs, losses and final
+    parameters bit-equal, each card's K1/K2 for its own batches); then
+    with the DRM on for ``MC_DRM_ITERS`` iterations on one card and on
+    four, readings only."""
+    cfg = dataclasses.replace(slice_cfg, n_accel=MC_CARDS)
+    eq_cfg = dataclasses.replace(cfg, use_drm=False)
+    four = mc_run(ds, sage, eq_cfg, MC_EQUAL_ITERS)
+    one = mc_run(ds, sage, eq_cfg, MC_EQUAL_ITERS, weights=four["init"],
+                 one_card=True)
+    check(sorted(set(four["cards"].values())) == list(range(cards)),
+          f"(a) accelerators on cards {four['cards']}")
+    check(set(one["cards"].values()) == {0}, f"(a) {one['cards']}")
+    check(all(math.isfinite(x) for x in four["losses"]),
+          f"(a) losses {four['losses']}")
+    same_run(four, one, "(a) one a card vs all on cuda:0")
+    for k, p in four["params"].items():
+        check(same_bits(p, one["params"][k]), f"(a) final parameter {k} "
+              f"differs")
+    for r in (four, one):
+        check(all(r["combines"].get(c, 0) == MC_EQUAL_ITERS * sum(
+            1 for v in r["cards"].values() if v == c)
+            for c in set(r["cards"].values())),
+            f"(a) combines {r['combines']}: an accelerator without a share")
+        check_card_launches(r, 1, "(a)")
+    res = dict(equal=dict(four=strip(four), one=strip(one)))
+    del four, one
+    drm = {}
+    for name, one_card in (("one", True), ("four", False)):
+        r = mc_run(ds, sage, cfg, MC_DRM_ITERS, one_card=one_card)
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"(a) DRM {name}: losses {r['losses']}")
+        check(all(sum(s.values()) == cfg.total_batch for s in r["shares"]),
+              f"(a) DRM {name}: shares {r['shares']}")
+        drm[name] = strip(r)
+    res["drm"] = drm
+    return res
+
+
+def mc_shard(ds, sage, host_cfg, cards: int) -> dict:
+    """(b) the sharded plane across cards: the shard phase's configuration
+    at kernel_pipeline_depth 1 and 2, replicated and sharded one a card
+    and sharded all on cuda:0: inputs and losses bit-equal, the sharded
+    traffic equal to one card's, each peer gather on its owner's card;
+    then the cache refreshing at every boundary at tfp_depth 0 (finding
+    3), replicated against sharded."""
+    cfg = dataclasses.replace(host_cfg, n_accel=MC_CARDS, hybrid=False,
+                              use_drm=False, shard_placement="hash")
+    res: dict = {}
+    weights = None
+    for depth in (1, 2):
+        runs = {}
+        for name, sharding, one_card in (("replicated", "replicated", False),
+                                         ("sharded", "sharded", False),
+                                         ("sharded_one_card", "sharded",
+                                          True)):
+            r = mc_run(ds, sage, dataclasses.replace(
+                cfg, cache_sharding=sharding, kernel_pipeline_depth=depth),
+                MC_SHARD_ITERS, weights=weights, one_card=one_card)
+            weights = weights or r["init"]
+            check_card_launches(r, depth, f"(b) depth {depth} {name}")
+            runs[name] = r
+        rep, sh, one = (runs["replicated"], runs["sharded"],
+                        runs["sharded_one_card"])
+        check(all(math.isfinite(x) for x in sh["losses"]),
+              f"(b) losses {sh['losses']}")
+        same_run(sh, rep, f"(b) depth {depth}: sharded vs replicated")
+        same_run(sh, one, f"(b) depth {depth}: four cards vs one")
+        check(sh["traffic"] == one["traffic"], f"(b) depth {depth}: "
+              f"traffic {sh['traffic']} vs one card {one['traffic']}")
+        check(sh["traffic"]["peer_rows"] > 0 and sum(
+            sh["peer_gathers"].values()) > 0, "(b) no peer rows")
+        check(len(sh["peer_gathers"]) == cards,
+              f"(b) peer gathers by owner {sh['peer_gathers']}")
+        res[f"depth{depth}"] = {name: strip(r) for name, r in runs.items()}
+        del runs, rep, sh, one
+    refresh = {}
+    for depth in (1, 2):
+        runs = {}
+        for sharding in ("replicated", "sharded"):
+            r = mc_run(ds, sage, dataclasses.replace(
+                cfg, cache_sharding=sharding, kernel_pipeline_depth=depth,
+                tfp_depth=0, cache_refresh=True,
+                cache_drift_threshold=0.0), MC_REFRESH_ITERS,
+                weights=weights)
+            check_card_launches(r, depth, f"(b) refresh depth {depth} "
+                                f"{sharding}")
+            runs[sharding] = r
+        sh = runs["sharded"]
+        check(sh["losses"] == runs["replicated"]["losses"],
+              f"(b) refresh depth {depth}: sharded {sh['losses']} vs "
+              f"replicated {runs['replicated']['losses']}")
+        check(sh["cache_version"] > 0 and sum(sh["scatters"].values()) > 0,
+              f"(b) refresh depth {depth}: no commit")
+        for i, cs in sh["shard_cards"].items():
+            check(cs == [sh["cards"][f"accel{i}"]], f"(b) shard {i} "
+                  f"scattered on cards {cs}")
+        refresh[f"depth{depth}"] = {n: strip(r) for n, r in runs.items()}
+        del runs, sh
+    res["refresh"] = refresh
+    res["link"] = peer_link(cards)
+    return res
+
+
+def peer_link(cards: int) -> dict:
+    """The peer hop's rate: a peer gather's rows (the kernels phase's
+    6,524 x 100 f32) and a 256 MiB block copied from card 1 to card 0,
+    timed by CUDA events on the reader's stream (20 copies each, after
+    warm-up), beside the perf model's NVLink rate."""
+    from repro_torch.core.perfmodel import PLATFORMS
+    src_dev, dst_dev = torch.device("cuda", 1), torch.device("cuda", 0)
+    out = dict(peer_access=torch.cuda.can_device_access_peer(0, 1),
+               model_gbps=PLATFORMS["h100-sxm"].ici_gbps)
+    for name, rows in (("peer_gather", 6524), ("block_256mib",
+                                                (256 << 20) // 400)):
+        gen = torch.Generator(device=src_dev).manual_seed(rows)
+        src = torch.randn(rows, 100, device=src_dev, generator=gen)
+        dst = torch.empty(rows, 100, device=dst_dev)
+        for _ in range(3):
+            dst.copy_(src)
+        torch.cuda.synchronize(src_dev)
+        torch.cuda.synchronize(dst_dev)
+        with torch.cuda.device(dst_dev):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                dst.copy_(src)
+            end.record()
+            end.synchronize()
+        ms = start.elapsed_time(end) / 20
+        check(torch.equal(dst.cpu(), src.cpu()), f"peer hop {name}")
+        out[name] = dict(bytes=src.numel() * 4, ms=ms,
+                         gbps=src.numel() * 4 / ms / 1e6)
+        del src, dst
+    return out
+
+
+def mc_psum_rank(rank: int, n: int, store: str, q) -> None:
+    """One rank of (c)'s mean check on cuda:<rank> over NCCL (a spawned
+    process): its own f32 gradient tree of llama3.2-1b (row ``rank`` of
+    a 4 x 4096 batch), the flat all-reduce mean, and
+    ``hierarchical_psum_mean`` on a (n, 1) mesh and on a (2, n/2, 1) pod
+    mesh.  Puts ``(rank, result)`` on ``q``."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    try:
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=rank, world_size=n, device_id=dev,
+                                timeout=datetime.timedelta(seconds=120))
+        res = _mc_psum_run(rank, n, dev)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException as e:
+        res = {"error": "".join(traceback.format_exception(e))[-3000:]}
+    q.put((rank, res))
+
+
+def _ulp(t: torch.Tensor) -> torch.Tensor:
+    a = t.abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def _mc_psum_run(rank: int, n: int, dev: torch.device) -> dict:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.dist import hierarchical_psum_mean, use_mesh
+    from repro_torch.models import init_params, value_and_grad
+    cfg = dataclasses.replace(get_arch(LM_ARCH), attn_impl="flash")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = next(iter(TokenPipeline(cfg, n, 4096, seed=0, depth=0,
+                                    device=dev).batches(1)))
+    row = {k: v[rank:rank + 1] for k, v in batch.items()}
+    _, _, grads = value_and_grad(model, cfg, row)
+    del model
+    tree = {k: g.float() for k, g in grads.items()}
+    del grads
+    torch.cuda.empty_cache()
+    flat, scale = {}, {}
+    for k, g in tree.items():
+        t = g.clone()
+        dist.all_reduce(t)
+        flat[k] = t / n
+        t = g.abs()
+        dist.all_reduce(t)
+        scale[k] = _ulp(t / n)       # ulp of mean|x| an element
+    meshes = [("data_model", (n, 1), ("data", "model"))]
+    if n % 2 == 0 and n >= 4:
+        meshes.append(("pod", (2, n // 2, 1), ("pod", "data", "model")))
+    out = {}
+    for name, shape, axes in meshes:
+        mesh = init_device_mesh("cuda", shape, mesh_dim_names=axes)
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            got = hierarchical_psum_mean(tree)
+        torch.cuda.synchronize(dev)
+        s = time.perf_counter() - t0
+        ulp_mag = ulp_res = 0.0
+        differ = 0
+        for k in tree:
+            d = (got[k] - flat[k]).abs()
+            differ += int((d > 0).sum())
+            ulp_mag = max(ulp_mag, float((d / scale[k]).max()))
+            ulp_res = max(ulp_res, float((d / _ulp(flat[k])).max()))
+        del got
+        out[name] = dict(mesh=list(shape), s=s, elements_differ=differ,
+                         bit_equal=differ == 0, max_ulp_of_scale=ulp_mag,
+                         max_ulp_of_result=ulp_res)
+    return dict(rank=rank, leaves=len(tree),
+                elements=sum(t.numel() for t in tree.values()), meshes=out)
+
+
+def spawn_ranks(target, n: int, work: Path) -> list:
+    """``target(rank, n, store, q)`` in ``n`` spawned processes joined
+    through a FileStore under ``work``, each answer awaited for at most
+    ``MC_RANK_TIMEOUT`` seconds; every process joined or killed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = str(work / f"store-{target.__name__}")
+    procs = [ctx.Process(target=target, args=(r, n, store, q))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    out = {}
+    deadline = time.monotonic() + MC_RANK_TIMEOUT
+    try:
+        for _ in procs:
+            try:
+                rank, res = q.get(timeout=max(deadline - time.monotonic(),
+                                              1))
+            except queue.Empty:
+                break
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = {r: out[r]["error"] for r in out if "error" in out[r]}
+    check(len(out) == n and not errors, f"{target.__name__}: ranks "
+          f"{sorted(out)} of {n} answered; errors {errors}")
+    return [out[r] for r in range(n)]
+
+
+def torchrun(n: int, argv, timeout: float) -> list:
+    """``python -m torch.distributed.run --standalone --nproc-per-node n``
+    on the training CLI (its ranks on cuda:0..n-1 over NCCL); every rank
+    prints its JSON line last.  The launcher's process group is killed
+    past ``timeout``."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", "-m", "repro_torch.launch.train",
+           *argv]
+    p = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        check(False, f"(c) {' '.join(argv)}: past {timeout} s\n{err[-3000:]}")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+    check(p.returncode == 0, f"(c) torchrun {' '.join(argv)}: exit "
+          f"{p.returncode}\n{err[-4000:]}")
+    # each rank's JSON object, wherever the shared stdout put it
+    ranks = {}
+    dec = json.JSONDecoder()
+    i = out.find('{"arch"')
+    while i >= 0:
+        r, end = dec.raw_decode(out, i)
+        if "rank" in r:
+            ranks[r["rank"]] = r
+        i = out.find('{"arch"', end)
+    check(sorted(ranks) == list(range(n)), f"(c) ranks {sorted(ranks)} "
+          f"printed\n{out[-2000:]}")
+    return [ranks[r] for r in range(n)]
+
+
+def mc_lm(cards: int, work: Path) -> dict:
+    """(c) the LM mesh route over NCCL, one rank a card (see the module
+    docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    check("WORLD_SIZE" not in os.environ, "(c) a launcher's WORLD_SIZE")
+    one = train_cli.main([*MC_LM_ARGS, "--microbatches", "4"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in one["losses"]),
+          f"(c) one process: {one['losses']}")
+    res: dict = {"one_process": one}
+    # one microbatch a rank: each layer's K8 forward and its remat
+    # recompute
+    per_step = get_arch(LM_ARCH).n_layers * 2
+    for name, mp_size in MC_LM_LAYOUTS:
+        if cards % mp_size or 4 % (cards // mp_size):
+            res[name] = {"skipped": f"{cards} cards: the 4-row batch does "
+                                    f"not split over 'data'"}
+            continue
+        t0 = time.perf_counter()
+        ranks = torchrun(cards, [*MC_LM_ARGS, "--model-parallel",
+                                 str(mp_size)], MC_RANK_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            d = max(abs(a - b) for a, b in zip(r["losses"], one["losses"]))
+            check(d <= TRAIN_LOSS_TOL, f"(c) {name} rank {r['rank']} "
+                  f"losses {r['losses']} vs one process {one['losses']}")
+            check(r["mesh"] == {"data": cards // mp_size, "model": mp_size},
+                  f"(c) {name} mesh {r['mesh']}")
+            check(r["layout_kept"], f"(c) {name}: a parameter's layout "
+                  f"changed")
+            check(r["k8_per_step"] == [per_step] * len(one["losses"]),
+                  f"(c) {name} rank {r['rank']} K8 {r['k8_per_step']}, "
+                  f"expected {per_step} a step")
+            r["max_loss_diff"] = d
+        res[name] = dict(model_parallel=mp_size, wall_s=wall, ranks=ranks)
+    ranks = spawn_ranks(mc_psum_rank, cards, work)
+    for r in ranks:
+        for name, m in r["meshes"].items():
+            check(m["max_ulp_of_scale"] <= PSUM_ULP_TOL,
+                  f"(c) rank {r['rank']} hierarchical vs flat mean on "
+                  f"{name}: {m}")
+    res["psum"] = ranks
+    return res
+
+
+def phase_multicard(ds, sage, slice_cfg, host_cfg, cards: int,
+                    work: Path) -> dict:
+    """The paths that exist only across cards (see the module docstring),
+    on ``cards`` cards; ``work`` (removed here) holds the ranks' stores."""
+    t_phase = time.perf_counter()
+    res: dict = {"cards": cards, "part_s": {}}
+
+    def lap(part: str) -> None:
+        res["part_s"][part] = time.perf_counter() - t_phase - sum(
+            res["part_s"].values())
+
+    res["topology"] = topology(cards)
+    res["names"] = [f"{torch.cuda.get_device_name(i)}" for i in range(cards)]
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        # each part's readings on a line of its own as it ends
+        res["gnn"] = mc_gnn(ds, sage, slice_cfg, cards)
+        lap("gnn")
+        emit("multicard_gnn", **res["gnn"])
+        res["shard"] = mc_shard(ds, sage, host_cfg, cards)
+        lap("shard")
+        emit("multicard_shard", **res["shard"])
+        res["lm"] = mc_lm(cards, work)
+        lap("lm")
+        emit("multicard_lm", **res["lm"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # each card's launches over (a)-(c): the GNN runs' counts by card, and
+    # each rank's K8 on its own card
+    per_card = {c: {k: 0 for k in MC_KERNELS} for c in range(cards)}
+    runs = [r for part in (res["gnn"]["equal"], res["gnn"]["drm"])
+            for r in part.values()]
+    for key in ("depth1", "depth2"):
+        runs += list(res["shard"][key].values())
+        runs += list(res["shard"]["refresh"][key].values())
+    for r in runs:
+        for k, by_card in r["launches"].items():
+            for c, v in by_card.items():
+                per_card[c][k] += v
+    for name, _ in MC_LM_LAYOUTS:
+        for r in res["lm"].get(name, {}).get("ranks", []):
+            per_card[r["rank"]]["flash_attention"] += r["k8_launches"]
+    res["per_card_launches"] = per_card
+    res["wall_s"] = time.perf_counter() - t_phase
+    for c, counts in per_card.items():
+        emit("multicard_card", card=c, name=res["names"][c],
+             links={k: v for k, v in res["topology"]["links"].items()
+                    if str(c) in k.split("-")},
+             nvlink=res["topology"]["nvlink"][c], launches=counts)
+    emit("multicard", **{k: v for k, v in res.items()
+                         if k not in ("gnn", "shard", "lm")})
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -3823,6 +4442,10 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="directory for the build log (ptxas -v output) and "
                     "every phase's JSON line (phases.jsonl)")
+    ap.add_argument("--cards", type=int, default=None,
+                    help="exit non-zero unless at least this many cards "
+                    "are visible (the multicard phase runs on up to "
+                    f"{MC_CARDS} whenever two or more are)")
     ap.add_argument("--spill-dir", default=None,
                     help="a directory to create for the outofcore phase's "
                     "feature spill (980 MB at scale 1.0; removed at the "
@@ -3831,6 +4454,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
+        return 2
+    if args.cards is not None and torch.cuda.device_count() < args.cards:
+        print(f"chip_smoke: {args.cards} cards asked for, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
     # full-precision f32 everywhere a library product runs (stated, not
     # assumed): the plain versions and the backwards use cuBLAS
@@ -3936,6 +4563,12 @@ def main() -> int:
     ssm_res = phase_lm_ssm(torch.device("cuda", 0),
                            PLATFORMS[platform].mem_bw_gbps * 1e9)
     mesh_res = phase_mesh(torch.device("cuda", 0), mesh_work, early)
+    cards = min(torch.cuda.device_count(), MC_CARDS)
+    if cards >= 2:
+        phase_multicard(ds, sage, slice_cfg, host_cfg, cards,
+                        ROOT / "build" / f"multicard-{os.getpid()}")
+    else:
+        emit("multicard", skipped="1 card visible")
 
     launches = dict(train["launches"])
     launches["segment_sum"] = seg_launches["segment_sum"]

@@ -7,19 +7,20 @@ device decides the path: a CUDA tensor launches the hand-written kernel
 runs the plain PyTorch version in ``ref.py``.  There is
 no fallback from a failed build or launch to the plain version.
 
-Each launch adds one to its kernel's counter (``kernel_launches()``), so a
-run can show that its main path went through the kernels.  The two layer
-kernels sit inside ``torch.autograd.Function``s and flash attention in a
-custom op (``torch.library.custom_op``) whose autograd is registered; their
-backwards are the reference's VJPs (``repro/kernels/ops.py:343-357``,
-``:414-445`` and ``:458-480``), written as torch ops: the reference has no
-Pallas backward either.
+Each launch adds one to its kernel's counter (``kernel_launches()``) and to
+its kernel's count on the card it ran on (``kernel_launches_by_device()``),
+so a run can show that its main path went through the kernels, and on
+which cards.  The two layer kernels sit inside ``torch.autograd.Function``s
+and flash attention in a custom op (``torch.library.custom_op``) whose
+autograd is registered; their backwards are the reference's VJPs
+(``repro/kernels/ops.py:343-357``, ``:414-445`` and ``:458-480``), written
+as torch ops: the reference has no Pallas backward either.
 """
 from __future__ import annotations
 
 import threading
 from contextlib import nullcontext
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,7 +31,8 @@ from .build import library
 __all__ = ["assemble_features", "assemble_features_sharded", "gather_rows",
            "cache_combine_legacy", "update_cache_rows", "scatter_rows_",
            "segment_weighted_sum_regular", "fused_gnn_update",
-           "flash_attention", "FLASH_HEAD_DIMS", "kernel_launches", "reset_kernel_launches", "KERNELS",
+           "flash_attention", "FLASH_HEAD_DIMS", "kernel_launches",
+           "kernel_launches_by_device", "reset_kernel_launches", "KERNELS",
            "COMBINE_ROW_BLOCK", "UPDATE_ROW_BLOCK", "MAX_RING_BYTES"]
 
 # kernel name -> the wrapper's counter; bumped only where a kernel launches
@@ -42,6 +44,8 @@ _LIBRARY = {"cache_combine_pipelined": "cache_combine",
             "cache_combine_legacy": "cache_combine",
             "cache_update_pipelined": "cache_update"}
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
+# (kernel, card ordinal) -> launches on that card
+_launches_on: Dict[Tuple[str, int], int] = {}
 _launch_lock = threading.Lock()   # trainer threads launch concurrently
 
 
@@ -51,10 +55,21 @@ def kernel_launches() -> Dict[str, int]:
         return dict(_launches)
 
 
+def kernel_launches_by_device() -> Dict[str, Dict[int, int]]:
+    """Launches per kernel and card ordinal since the last reset (a card
+    that launched a kernel no time is absent from its dict)."""
+    out: Dict[str, Dict[int, int]] = {k: {} for k in KERNELS}
+    with _launch_lock:
+        for (kernel, card), n in _launches_on.items():
+            out[kernel][card] = n
+    return out
+
+
 def reset_kernel_launches() -> None:
     with _launch_lock:
         for k in _launches:
             _launches[k] = 0
+        _launches_on.clear()
 
 
 def _launch(kernel: str, symbol: str, on: torch.Tensor, *args) -> None:
@@ -72,8 +87,10 @@ def _launch(kernel: str, symbol: str, on: torch.Tensor, *args) -> None:
         msg = getattr(lib, f"{name}_error_string")(rc)
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} "
                            f"({msg.decode() if msg else '?'})")
+    key = (kernel, on.device.index)
     with _launch_lock:
         _launches[kernel] += 1
+        _launches_on[key] = _launches_on.get(key, 0) + 1
 
 
 def _stream(t: torch.Tensor) -> int:

@@ -15,14 +15,16 @@ under ``torchrun`` with ``WORLD_SIZE > 1`` each process joins the group
 cpu``), builds a ('data', 'model') mesh with ``--model-parallel`` ranks on
 'model', lays the parameters out by the rule table and runs the step under
 it (the default 'tp2d' policy).  One process runs without a mesh whatever
-``--model-parallel`` says.  Rank 0 prints and writes the checkpoints (full
-tensors, so a run restores onto any mesh).
+``--model-parallel`` says.  Rank 0 prints the progress and writes the
+checkpoints (full tensors, so a run restores onto any mesh); under a mesh
+every rank prints its own readings as its last line.
 
 A resumed run reads the batches of the steps it resumes at (step ``i``
 from ``seed + i``), so its losses continue an uninterrupted run's bit for
 bit; the reference's CLI replays its stream from step 0 instead.
-``main`` returns the readings (losses, ms per step, tok/s) and prints them
-last as one JSON line.
+``main`` returns the readings (losses, ms per step, tok/s, K8 launches a
+step, peak device memory; under a mesh also the rank and whether every
+parameter kept its layout) and prints them last as one JSON line.
 """
 from __future__ import annotations
 
@@ -123,16 +125,16 @@ def _train(args, device: torch.device, mesh, rank: int) -> Dict[str, object]:
     cfg = get_arch(args.arch, reduced=args.reduced)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    layout = None if mesh is None else dict(zip(mesh.mesh_dim_names,
-                                                mesh.shape))
+    shape = None if mesh is None else dict(zip(mesh.mesh_dim_names,
+                                               mesh.shape))
     say(f"arch={cfg.name} device={device} attn_impl={cfg.attn_impl} "
-        f"mesh={layout}")
+        f"mesh={shape}")
 
     with use_mesh(mesh):
         params = init_params(cfg, torch.Generator(device=device).manual_seed(
             args.seed), device)
-        if mesh is not None:
-            shard_params(params, mesh)
+        layout = (shard_params(params, mesh) if mesh is not None
+                  else None)
         named = dict(params.named_parameters())
         opt = adamw(cosine_warmup_schedule(args.lr, args.steps // 10 + 1,
                                            args.steps))
@@ -161,7 +163,9 @@ def _train(args, device: torch.device, mesh, rank: int) -> Dict[str, object]:
                              depth=args.prefetch_depth, device=device)
         losses: List[float] = []
         times: List[float] = []
-        launches0 = ops.kernel_launches()["flash_attention"]
+        k8_per_step: List[int] = []
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         loss = float("nan")
         t_prev = time.perf_counter()
         for step, batch in enumerate(pipe.batches(args.steps - start_step,
@@ -169,8 +173,11 @@ def _train(args, device: torch.device, mesh, rank: int) -> Dict[str, object]:
                                      start=start_step):
             if mesh is not None:
                 batch = shard_batch(batch, mesh)
+            k8_0 = ops.kernel_launches()["flash_attention"]
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = _value(metrics["loss"])       # waits for the step
+            k8_per_step.append(ops.kernel_launches()["flash_attention"]
+                               - k8_0)
             now = time.perf_counter()
             dt = now - t_prev
             t_prev = now
@@ -190,11 +197,20 @@ def _train(args, device: torch.device, mesh, rank: int) -> Dict[str, object]:
         arch=cfg.name, device=str(device), start_step=start_step,
         steps=args.steps, losses=losses, ms_per_step=[t * 1e3 for t in times],
         median_ms=med * 1e3, tok_s=args.batch * args.seq / med,
-        k8_launches=ops.kernel_launches()["flash_attention"] - launches0)
+        k8_launches=sum(k8_per_step), k8_per_step=k8_per_step,
+        peak_bytes=(torch.cuda.max_memory_allocated(device)
+                    if device.type == "cuda" else None))
     if mesh is not None:
-        res["mesh"] = layout
+        res["mesh"] = shape
         res["rank"] = rank
-    say(json.dumps(res))
+        res["layout_kept"] = all(tuple(p.placements) == layout[k]
+                                 for k, p in params.named_parameters())
+        # each rank's own readings (its K8 launches, its peak memory), the
+        # line and its newline in one write: under a launcher the ranks
+        # share one unbuffered stdout, and print's two writes interleave
+        print(json.dumps(res) + "\n", end="", flush=True)
+    else:
+        say(json.dumps(res))
     return res
 
 

@@ -6,8 +6,14 @@ On the card, run this file alone:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-The two ``two_cards`` cases need a second card, where a peer row
-crosses from its owner's card to the reader's; with one card they skip.
+The cases that take the ``n_cards`` fixture need that many cards (they
+skip with fewer): a peer row crossing from its owner's card to the
+reader's, the sharded plane one shard a card, one accelerator trainer a
+card against all on cuda:0, and the LM mesh route over NCCL (one spawned
+rank a card, joined through a FileStore in ``tmp_path``, each launch
+under a time limit).  Run them on four cards with
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q -k across_cards
 It imports neither JAX nor the reference package, which the card's
 machine does not have.  Each kernel is held against its plain version on
 the same inputs: the combines (K1, K4 at every depth, K7) and the refresh
@@ -44,10 +50,13 @@ def cuda():
 
 
 @pytest.fixture
-def two_cards(cuda):
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA cards: the peer hop crosses cards")
-    return torch.device("cuda", 0), torch.device("cuda", 1)
+def n_cards(cuda):
+    """``n_cards(k)``: cuda:0 .. cuda:k-1, or a skip with fewer cards."""
+    def need(k: int):
+        if torch.cuda.device_count() < k:
+            pytest.skip(f"needs {k} CUDA cards: the path crosses cards")
+        return [torch.device("cuda", i) for i in range(k)]
+    return need
 
 
 def _randn(gen, *shape, device):
@@ -222,22 +231,23 @@ def test_gather_rows_on_card(cuda, depth):
 
 
 @pytest.mark.parametrize("depth", [1, 2])
-def test_peer_gather_across_cards(two_cards, depth):
+def test_peer_gather_across_cards(n_cards, depth):
     """A peer gather issued under the reader's transfer stream on card 0
     reads a block owned by card 1: the kernel runs on card 1 and only the
     gathered rows hop to card 0."""
-    reader, owner = two_cards
+    reader, owner = n_cards(2)
     rng = np.random.default_rng(depth)
     block = torch.from_numpy(rng.standard_normal((5000, 100)).astype(
         np.float32)).to(owner)
     slots = rng.integers(0, 5000, 3001).astype(np.int32)
     kernel = "cache_combine" if depth == 1 else "cache_combine_pipelined"
-    n0 = ops.kernel_launches()[kernel]
+    ops.reset_kernel_launches()
     stream = torch.cuda.Stream(reader)
     with torch.cuda.stream(stream):
         got = peer_gather_rows(block, slots, reader, depth)
     stream.synchronize()
-    assert ops.kernel_launches()[kernel] == n0 + 1
+    assert ops.kernel_launches()[kernel] == 1
+    assert ops.kernel_launches_by_device()[kernel] == {1: 1}
     assert got.device == reader
     assert torch.equal(got.cpu(),
                        block[torch.from_numpy(slots).long().to(owner)].cpu())
@@ -422,37 +432,42 @@ def test_sharded_plane_on_card_bit_identical_and_launches_k4(cuda):
         runs["replicated"][1]["cache_combine_pipelined"]
 
 
-def test_sharded_plane_across_cards_bit_identical(two_cards):
-    """At n_accel=2 on two cards, with the cache refreshing on every
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_plane_across_cards_bit_identical(n_cards, n):
+    """At n_accel=n on n cards, with the cache refreshing on every
     boundary, the sharded plane (peer rows gathered on the owner's card,
     shards refreshed through K6 on their own cards) gives the replicated
-    run's losses bit for bit."""
+    run's losses bit for bit, and every card launched K4."""
+    n_cards(n)
     ds = make_dataset("ogbn-products", scale=0.01, seed=0)
     g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5))
     runs = {}
     for sharding in ("replicated", "sharded"):
-        cfg = HybridConfig(total_batch=512, n_accel=2, hybrid=False,
+        cfg = HybridConfig(total_batch=512, n_accel=n, hybrid=False,
                            use_drm=False, tfp_depth=2, cache_fraction=0.1,
                            cache_sharding=sharding, kernel_pipeline_depth=2,
                            cache_refresh=True, cache_drift_threshold=0.0,
                            accel_platform="rtx-a5000")
         tr = HybridGNNTrainer(ds, g, cfg)
-        assert {tr._accel_device(f"accel{i}").index for i in (0, 1)} == \
-            {0, 1}
+        assert [tr._accel_device(f"accel{i}").index for i in range(n)] == \
+            list(range(n))
         if sharding == "sharded":
             tr.set_params(runs["replicated"][2])
         params0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
         ops.reset_kernel_launches()
         hist = tr.train(4)
         tr.close()
-        runs[sharding] = ([m.loss for m in hist], ops.kernel_launches(),
-                          params0, tr.feature_traffic())
+        runs[sharding] = ([m.loss for m in hist],
+                          ops.kernel_launches_by_device(), params0,
+                          tr.feature_traffic())
     assert all(math.isfinite(x) for x in runs["sharded"][0])
     assert runs["sharded"][0] == runs["replicated"][0]
     assert runs["sharded"][3]["peer_rows"] > 0
     for sharding in runs:
-        assert runs[sharding][1]["cache_combine_pipelined"] >= 2 * 4
-        assert runs[sharding][1]["cache_update_pipelined"] >= 1
+        by_card = runs[sharding][1]
+        assert sorted(by_card["cache_combine_pipelined"]) == list(range(n))
+        assert sum(by_card["cache_combine_pipelined"].values()) >= n * 4
+        assert sum(by_card["cache_update_pipelined"].values()) >= 1
 
 
 @pytest.mark.parametrize("agg_impl", ["kernel_fused", "kernel"])
@@ -1023,3 +1038,227 @@ def test_autotune_on_card_bit_equal_to_off(cuda, tmp_path):
     for auto in runs:
         assert runs[auto][3]["cache_combine"] >= 10
         assert runs[auto][3]["fused_update"] >= 20
+
+
+# ------------------------------------------------------ across cards (n_cards)
+
+
+def _spy_inputs(tr):
+    """Every iteration's layer-0 inputs per trainer, as the training thread
+    receives them."""
+    inputs = {}
+    orig = tr._run_trainers
+
+    def run(item):
+        p = item.payload
+        inputs[p["iteration"]] = {n: x.clone()
+                                  for n, x in p["features"].items()}
+        return orig(item)
+    tr._run_trainers = run
+    return inputs
+
+
+def test_trainers_across_cards_bit_equal_to_one_card(n_cards):
+    """The hybrid trainer at n_accel=4 (the CPU trainer on the host, the
+    device sampler on cuda:0), the DRM off: one accelerator trainer a card
+    gives the layer-0 inputs, losses and final parameters of all four on
+    cuda:0 bit for bit, and each card launches K1 once and K2 twice for
+    each of its own batches."""
+    n_cards(4)
+    ds = make_dataset("ogbn-products", scale=0.01, seed=0)
+    g = GNNConfig(model="sage", layer_dims=(100, 64, 47), fanouts=(10, 5),
+                  agg_impl="kernel_fused")
+    cfg = HybridConfig(total_batch=1024, n_accel=4, use_drm=False,
+                       tfp_depth=2, cache_fraction=0.2)
+    runs = {}
+    for placement in ("four", "one"):
+        tr = HybridGNNTrainer(ds, g, cfg)
+        if placement == "one":
+            tr.accel_devices = [torch.device("cuda", 0)] * 4
+            tr.set_params(runs["four"][3])
+        cards = [tr._accel_device(f"accel{i}").index for i in range(4)]
+        assert cards == ([0, 1, 2, 3] if placement == "four" else [0] * 4)
+        params0 = {k: v.cpu().numpy() for k, v in tr.params.items()}
+        inputs = _spy_inputs(tr)
+        ops.reset_kernel_launches()
+        hist = tr.train(4)
+        tr.close()
+        assert all(m.shares[f"accel{i}"] > 0 for m in hist
+                   for i in range(4))
+        runs[placement] = ([m.loss for m in hist], inputs,
+                           {k: v.cpu() for k, v in tr.params.items()},
+                           params0, ops.kernel_launches_by_device())
+    (l4, x4, p4, _, k4), (l1, x1, p1, _, k1) = runs["four"], runs["one"]
+    assert all(math.isfinite(x) for x in l4) and l4 == l1
+    assert sorted(x4) == sorted(x1) == list(range(4))
+    for it, xs in x4.items():
+        assert sorted(xs) == sorted(x1[it])
+        for name, x in xs.items():
+            assert torch.equal(x.cpu(), x1[it][name].cpu()), (it, name)
+    for name, p in p4.items():
+        assert torch.equal(p, p1[name]), name
+    assert k4["cache_combine"] == {c: 4 for c in range(4)}
+    assert k4["fused_update"] == {c: 8 for c in range(4)}
+    assert k1["cache_combine"] == {0: 16}
+    assert k1["fused_update"] == {0: 32}
+
+
+# The mesh route over NCCL: llama3.2-1b at full width cut to depth 2 (bf16,
+# flash, remat), 3 AdamW steps of 4 x 1024 tokens, one rank a card.
+NCCL_DEPTH, NCCL_BATCH, NCCL_SEQ, NCCL_STEPS, NCCL_LR = 2, 4, 1024, 3, 3e-4
+NCCL_LOSS_TOL = 5e-3          # chip_smoke.py's TRAIN_LOSS_TOL (bf16 steps)
+NCCL_ULP_TOL = 4              # chip_smoke.py's PSUM_ULP_TOL
+NCCL_TIMEOUT = 300
+
+_NCCL_RANK = r"""
+import dataclasses, datetime, json, math, sys
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_arch
+from repro_torch.data import TokenPipeline
+from repro_torch.dist import (hierarchical_psum_mean, shard_batch,
+                              shard_params, use_mesh)
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import init_params, make_train_step, value_and_grad
+from repro_torch.optim import adamw
+rank, world, store, spec = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                            json.loads(sys.argv[4]))
+dev = torch.device("cuda", rank)
+torch.cuda.set_device(dev)
+dist.init_process_group("nccl", init_method="file://" + store, rank=rank,
+                        world_size=world, device_id=dev,
+                        timeout=datetime.timedelta(seconds=120))
+cfg = dataclasses.replace(get_arch("llama3.2-1b"), attn_impl="flash",
+                          n_layers=spec["depth"])
+batches = list(TokenPipeline(cfg, spec["batch"], spec["seq"], seed=0,
+                             depth=0, device=dev).batches(spec["steps"]))
+out = {}
+if spec["mode"] == "train":
+    mesh = make_local_mesh(model=spec["model"])
+    with use_mesh(mesh):
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        layout = shard_params(model, mesh)
+        opt = adamw(spec["lr"])
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(cfg, opt)
+        losses, k8 = [], []
+        for b in batches:
+            n0 = ops.kernel_launches()["flash_attention"]
+            model, state, m = step(model, state, shard_batch(b, mesh))
+            losses.append(float(m["loss"].full_tensor()))
+            k8.append(ops.kernel_launches()["flash_attention"] - n0)
+        out = dict(losses=losses, k8_per_step=k8,
+                   mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   layout_kept=all(tuple(p.placements) == layout[k]
+                                   for k, p in model.named_parameters()),
+                   k8_cards=ops.kernel_launches_by_device()[
+                       "flash_attention"])
+else:
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    row = {k: v[rank:rank + 1] for k, v in batches[0].items()}
+    grads = value_and_grad(model, cfg, row)[2]
+    tree = {k: g.float() for k, g in grads.items()}
+    flat, scale = {}, {}
+    for k, g in tree.items():
+        t = g.clone()
+        dist.all_reduce(t)
+        flat[k] = t / world
+        a = g.abs()
+        dist.all_reduce(a)
+        a = a / world
+        scale[k] = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    for name, shape, axes in (("data_model", (world, 1), ("data", "model")),
+                              ("pod", (2, world // 2, 1),
+                               ("pod", "data", "model"))):
+        with use_mesh(init_device_mesh("cuda", shape, mesh_dim_names=axes)):
+            got = hierarchical_psum_mean(tree)
+        out[name] = max(float(((got[k] - flat[k]).abs() / scale[k]).max())
+                        for k in tree)
+dist.barrier()
+dist.destroy_process_group()
+print("RESULT:" + json.dumps(out))
+"""
+
+
+def _nccl_ranks(world, tmp_path, spec):
+    """``_NCCL_RANK`` in ``world`` processes, rank r on cuda:r, joined over
+    NCCL through a FileStore in ``tmp_path``; each prints one ``RESULT:``
+    line.  Every process is joined, or killed past ``NCCL_TIMEOUT``."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(k, None)
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_RANK, str(r),
+                               str(world), store, json.dumps(spec)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=NCCL_TIMEOUT)
+            assert p.returncode == 0, err[-3000:]
+            line = [ln for ln in out.splitlines()
+                    if ln.startswith("RESULT:")][-1]
+            outs.append(json.loads(line[len("RESULT:"):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+@pytest.mark.parametrize("model", [1, 2], ids=["dp-4x1", "tp2d-2x2"])
+def test_lm_mesh_across_cards_over_nccl_matches_one_process(n_cards,
+                                                          tmp_path, model):
+    """Four ranks, one a card, over NCCL on a (4 / model, model) mesh under
+    the training CLI's rule table: each rank's losses within the bf16 step
+    bound of one process on cuda:0 (the batch in 4 microbatches), K8 twice
+    a layer a step on its own card, the parameters' layout kept."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import make_train_step
+    from repro_torch.optim import adamw
+    cuda = n_cards(4)[0]
+    spec = dict(mode="train", depth=NCCL_DEPTH, batch=NCCL_BATCH,
+                seq=NCCL_SEQ, steps=NCCL_STEPS, lr=NCCL_LR, model=model)
+    outs = _nccl_ranks(4, tmp_path, spec)
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), attn_impl="flash",
+                              n_layers=NCCL_DEPTH)
+    m1 = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    opt = adamw(NCCL_LR)
+    state = opt.init(dict(m1.named_parameters()))
+    step = make_train_step(cfg, opt, NCCL_BATCH)
+    one = []
+    for b in TokenPipeline(cfg, NCCL_BATCH, NCCL_SEQ, seed=0, depth=0,
+                           device=cuda).batches(NCCL_STEPS):
+        m1, state, m = step(m1, state, b)
+        one.append(float(m["loss"]))
+    for rank, out in enumerate(outs):
+        assert out["mesh"] == {"data": 4 // model, "model": model}
+        assert out["layout_kept"]
+        assert out["k8_per_step"] == [2 * NCCL_DEPTH] * NCCL_STEPS
+        assert out["k8_cards"] == {str(rank): 2 * NCCL_DEPTH * NCCL_STEPS}
+        np.testing.assert_allclose(out["losses"], one, rtol=0,
+                                   atol=NCCL_LOSS_TOL)
+
+
+def test_hierarchical_mean_across_cards_over_nccl(n_cards, tmp_path):
+    """``hierarchical_psum_mean`` of four ranks' own f32 gradient trees on
+    a (4, 1) and a (2, 2, 1) pod mesh against a flat NCCL all-reduce mean:
+    within ``NCCL_ULP_TOL`` ulp of the summands' mean magnitude an element
+    (the two sum four terms in other orders)."""
+    n_cards(4)
+    spec = dict(mode="psum", depth=NCCL_DEPTH, batch=4, seq=NCCL_SEQ,
+                steps=1)
+    for out in _nccl_ranks(4, tmp_path, spec):
+        assert out["data_model"] <= NCCL_ULP_TOL, out
+        assert out["pod"] <= NCCL_ULP_TOL, out
+

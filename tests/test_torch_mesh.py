@@ -114,7 +114,8 @@ dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
                         world_size=world)
 from repro_torch.launch import train
 res = train.main(argv)
-print("RESULT:" + json.dumps({"losses": res["losses"], "mesh": res["mesh"]}))
+print("RESULT:" + json.dumps({k: res[k] for k in (
+    "losses", "mesh", "rank", "layout_kept", "k8_per_step", "peak_bytes")}))
 """
 
 
@@ -261,7 +262,34 @@ def test_train_cli_model_parallel_under_a_launcher(tmp_path, capsys):
     outs = run_ranks(_CLI, 4, tmp_path, argv)
     one = train_cli.main(argv)
     assert "mesh" not in one
-    for out in outs:
+    for rank, out in enumerate(outs):
         assert out["mesh"] == {"data": 2, "model": 2}
+        # every rank's own readings: its rank, the layout kept, K8 a step
+        # (0: the plain version on the host), no device memory
+        assert out["rank"] == rank and out["layout_kept"]
+        assert out["k8_per_step"] == [0] * 3 and out["peak_bytes"] is None
         np.testing.assert_allclose(out["losses"], one["losses"], rtol=0,
                                    atol=1e-5)
+
+
+def test_train_cli_under_torchrun_prints_one_line_a_rank():
+    """Under ``torchrun`` the ranks share one stdout: each rank's JSON
+    readings arrive as a line of their own (the line and its newline in
+    one write; print's two writes let another rank's line land between
+    them, as the four-card run showed)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=4", "-m", "repro_torch.launch.train", "--arch",
+         "smollm-135m", "--reduced", "--device", "cpu", "--steps", "1",
+         "--batch", "4", "--seq", "32", "--model-parallel", "2"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    lines = [json.loads(ln) for ln in p.stdout.splitlines()
+             if ln.startswith("{")]
+    assert sorted(r["rank"] for r in lines) == [0, 1, 2, 3]
+    assert all(r["mesh"] == {"data": 2, "model": 2} and r["layout_kept"]
+               for r in lines)
