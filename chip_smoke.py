@@ -296,10 +296,13 @@ visible cards), as the trainer does: on one card every accelerator shares
 cuda:0; with more cards visible their accelerators spread as multicard's do.
 
 The kernels phase also holds K8 (flash attention) against its plain version
-at the prefill's shape in f32 (the FMA body) and bf16 (the tensor-core
-body) and times the bf16 body beside ``scaled_dot_product_attention``
+at the prefill's shape in f32 (the FMA body) and bf16 (the warp-specialised
+wgmma body) and times the bf16 body beside ``scaled_dot_product_attention``
 (timed only; the port never calls it), with its achieved TFLOP/s and the
-fraction of its bound it reaches.
+fraction of its bound it reaches; K8's entry also carries the bf16 body's
+registers a thread, spills and shared bytes a CTA at every head dim
+(``bf16_body``, from the build's ptxas log), and the phase fails on a
+spill or on ptxas serialising its wgmma products.
 
 then the card's name and power limit as nvidia-smi prints them, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -835,12 +838,56 @@ def phase_kernels(trainer, b: int, platform: str, dev: torch.device) -> dict:
 def flash_kernel(dev, peak_bw: float) -> dict:
     """K8 at the serve phase's prefill shape (llama3.2-1b: B 4, S 4096, 8
     KV heads of 4 query heads, D 64) against its plain version in f32 and
-    bf16, and its time, the plain version's and SDPA's in bf16."""
+    bf16, and its time, the plain version's and SDPA's in bf16; with the
+    bf16 body's resources at every head dim (``k8_body``)."""
     from repro_torch.configs import get_arch
     cfg = get_arch(LM_ARCH)
-    return k8_at(dev, peak_bw, (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv,
-                                cfg.n_heads // cfg.n_kv, cfg.hd),
-                 cfg.q_block, (torch.float32, torch.bfloat16), timed)
+    res = k8_at(dev, peak_bw, (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv,
+                               cfg.n_heads // cfg.n_kv, cfg.hd),
+                cfg.q_block, (torch.float32, torch.bfloat16), timed)
+    res["bf16_body"] = k8_body()
+    return res
+
+
+def k8_body() -> dict:
+    """The bf16 body's resources at each head dim it is built for: ptxas's
+    registers a thread (the launch's: the warpgroups then trade them by
+    setmaxnreg, 24 for the producer, 240 for each consumer), spill bytes
+    and whether it serialised the wgmma products (note C7520), from the
+    build's ``-Xptxas -v`` log; and the dynamic shared bytes a CTA, from
+    the library.  Fails on a spill or on serialised products."""
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ops import FLASH_HEAD_DIMS
+    log = build._target("flash_attention").with_suffix(".log").read_text()
+    lib = build.library("flash_attention")
+    out, fn = {}, None
+    serialised = {int(m.group(1)) for m in re.finditer(
+        r"C7520\).*?wgmma_kernelILi(\d+)E", log)}
+    spill = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        d = re.search(r"wgmma_kernelILi(\d+)E", fn or "")
+        if m and d:
+            dim = int(d.group(1))
+            out[dim] = dict(registers=int(m.group(1)), spill_bytes=spill,
+                            wgmma_serialised=dim in serialised,
+                            smem_bytes=lib.flash_attention_bf16_smem_bytes(
+                                dim))
+    check(sorted(out) == sorted(FLASH_HEAD_DIMS),
+          f"K8's bf16 body in the ptxas log at {sorted(out)}")
+    for dim, r in out.items():
+        check(r["spill_bytes"] == 0, f"K8 bf16 body at D {dim} spills: {r}")
+        check(not r["wgmma_serialised"],
+              f"ptxas serialised K8's wgmma products at D {dim}")
+    return out
 
 
 def k8_at(dev, peak_bw: float, shape, q_block: int, dtypes, timer) -> dict:
@@ -4619,7 +4666,8 @@ def main() -> int:
             plain_call_ms=k["plain_call_ms"], timing=TIMING["method"],
             **{key: k[key] for key in ("tflops", "bound_fraction",
                                        "bf16_ms", "bf16_bound_ms",
-                                       "cache_less", "peer_gather")
+                                       "cache_less", "peer_gather",
+                                       "bf16_body")
                if key in k},
             **{key: k[key] for key in k if key.startswith(
                 ("train_", "scout_", "zamba_"))

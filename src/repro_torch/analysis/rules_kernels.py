@@ -16,8 +16,11 @@ matches):
 * **RPT203** (RPR203, DMA start without wait) — within each
   ``__global__`` function, lexically and by root name as the reference
   matches semaphores (``full`` in ``&full[s]``): every ``mbar_init``'d
-  barrier needs an arrival (``mbar_arrive*``) and an ``mbar_wait``; every
-  ``bulk_load`` must complete on a barrier that is waited on; every
+  barrier needs an arrival (``mbar_arrive*``, a consumer warp's
+  ``mbar_arrive_warp`` on an "empty" barrier included) and an
+  ``mbar_wait``; every ``bulk_load`` and every tensor-map load
+  (``tma_load*``, whose barrier is its last argument) must complete on a
+  barrier that is waited on; every
   ``bulk_store`` must be followed by a ``bulk_commit``, and the last
   ``bulk_commit`` by a drain (``bulk_wait<0>`` or ``bulk_wait_read<0>``)
   before the block exits and its shared memory is reused.  The helpers
@@ -85,7 +88,7 @@ _SIDE_EFFECT_RE = re.compile(
     r"fgets|fputc|fgetc|fflush|puts|putchar)\s*\(|\bstd::(cout|cerr|clog)\b")
 _BARRIER_CALL_RE = re.compile(
     r"\b(mbar_init|mbar_arrive\w*|mbar_wait|mbar_try_wait|bulk_load|"
-    r"bulk_store|bulk_commit|bulk_wait\w*)\b")
+    r"tma_load\w*|bulk_store|bulk_commit|bulk_wait\w*)\b")
 _DRAIN_RE = re.compile(r"<\s*0\s*>")
 
 
@@ -543,7 +546,7 @@ class KernelInvariantRules(Rule):
         inits: Dict[str, int] = {}
         arrived: Set[str] = set()
         waited: Set[str] = set()
-        loads: List[Tuple[str, int]] = []
+        loads: List[Tuple[str, str, int]] = []
         stores: List[int] = []
         commits: List[int] = []
         drains: List[int] = []
@@ -560,7 +563,11 @@ class KernelInvariantRules(Rule):
                 waited.add(first)
             elif call == "bulk_load":
                 bar = _barrier_root(args[-1]) if len(args) == 4 else None
-                loads.append((bar or "?", at))
+                loads.append((call, bar or "?", at))
+            elif call.startswith("tma_load"):
+                # a tensor-map load: (dst, map, coordinates..., barrier)
+                bar = _barrier_root(args[-1]) if len(args) >= 4 else None
+                loads.append((call, bar or "?", at))
             elif call == "bulk_store":
                 stores.append(at)
             elif call == "bulk_commit":
@@ -581,10 +588,10 @@ class KernelInvariantRules(Rule):
                                 f"pair every phase of '{bar}' with an "
                                 f"arrival and an mbar_wait before its "
                                 f"slot is reused")
-        for bar, at in loads:
+        for call, bar, at in loads:
             if bar not in waited:
                 ctx.report_line("RPT203", line_of(at),
-                                f"kernel '{fn.name}' issues a bulk_load "
+                                f"kernel '{fn.name}' issues a {call} "
                                 f"completing on '{bar}', which is never "
                                 f"waited on",
                                 f"mbar_wait on '{bar}' before reading the "

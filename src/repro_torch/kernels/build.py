@@ -68,6 +68,7 @@ _KERNELS: Dict[str, Tuple[str, Dict[str, Tuple[object, List[object]]]]] = {
                                      _I, _I64, _P]),
         "flash_attention_bf16": (_I, [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                       _I, _I64, _P]),
+        "flash_attention_bf16_smem_bytes": (_I64, [_I]),
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     }),
     "segment_sum": ("segment_sum.cu", {

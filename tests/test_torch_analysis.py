@@ -300,6 +300,36 @@ extern "C" int launch(const float* src, float* out, int n) {
 """
 
 
+TMA_RING = """\
+#include "tma.cuh"
+__global__ void tma_ring_kernel(const __grid_constant__ CUtensorMap map,
+                                float* out, int n) {
+  extern __shared__ unsigned char smem[];
+  __shared__ uint64_t full[2], empty[2];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  for (int k = 0; k < n; ++k) {
+    const int s = k % 2;
+    if (threadIdx.x == 0) {
+      if (k >= 2) mbar_wait(&empty[s], ((k / 2) - 1) & 1);
+      mbar_arrive_expect_tx(&full[s], 1024);
+      tma_load_4d(smem + s * 1024, &map, 0, 0, k * 4, 0, &full[s]);
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      mbar_wait(&full[s], (k / 2) & 1);
+      out[k * 32 + threadIdx.x - 32] = smem[s * 1024 + threadIdx.x];
+      mbar_arrive_warp(&empty[s]);
+    }
+  }
+}
+"""
+
+
 class TestCudaRules:
     def test_balanced_ring_is_clean(self, tmp_path):
         assert check_cu(tmp_path, RING) == []
@@ -328,6 +358,19 @@ class TestCudaRules:
         out = check_cu(tmp_path, src)
         assert rules_of(out) == ["RPT203"]
         assert "bulk_load" in out[0].message and "'other'" in out[0].message
+
+    def test_tma_ring_is_clean(self, tmp_path):
+        # K8's ring: tensor-map loads on "full", consumer warps' arrivals
+        # on "empty"
+        assert check_cu(tmp_path, TMA_RING) == []
+
+    def test_rpt203_tensor_load_on_unawaited_barrier(self, tmp_path):
+        src = TMA_RING.replace("      mbar_wait(&full[s], (k / 2) & 1);\n",
+                               "")
+        out = check_cu(tmp_path, src)
+        assert out and set(rules_of(out)) == {"RPT203"}
+        assert any("tma_load_4d" in f.message and "'full'" in f.message
+                   for f in out)
 
     def test_rpt203_store_never_committed(self, tmp_path):
         src = RING.replace("      bulk_commit();\n", "")
@@ -407,9 +450,12 @@ __device__ float quiet(float x);
             "combine_rows_kernel", "combine_rows_pipelined_kernel"]
         assert found["fused_update.cu"] == ["fused_update_kernel",
                                             "fused_update_ring_kernel"]
+        assert found["flash_attention.cu"] == ["flash_fwd_kernel",
+                                               "flash_fwd_wgmma_kernel"]
         assert all(found.values())
 
-    MUTANTS = [(name, i) for name in ("cache_combine.cu", "fused_update.cu")
+    MUTANTS = [(name, i) for name in ("cache_combine.cu", "fused_update.cu",
+                                      "flash_attention.cu")
                for i, line in enumerate(
                    (CSRC / name).read_text().split("\n"))
                if "mbar_wait(" in line]

@@ -22,8 +22,10 @@ f32 (1e-2 in bf16: one rounding of the sum), the fused layer and every
 gradient rtol=atol=1e-4 (fp32 sums in another order than cuBLAS), flash
 attention (K8) rtol=atol=2e-5 in f32 (the online softmax sums 64-key
 tiles in another order than the plain version's one softmax) and 1e-2 in
-bf16 (the tensor-core body rounds p to bf16 for P V, and the output is
-rounded once from an f32 value that may differ in its last bits).
+bf16 (the wgmma body rounds p to bf16 for P V, and the output is
+rounded once from an f32 value that may differ in its last bits).  K8's
+tensor-core layouts are also held against numpy through
+``tests/wgmma_probe.cu``, built here with nvcc.
 """
 import dataclasses
 import math
@@ -559,6 +561,88 @@ def test_flash_attention_at_zamba_head_dim(cuda, dtype, s, hkv, g):
     output columns a thread in the f32 body; G 1 (zamba's shared
     attention) and a GQA group of 4, a ragged length and the prefill's."""
     _flash_case(cuda, dtype, 1, s, hkv, g, 112, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [100, 4096])
+def test_flash_attention_batch_boundary(cuda, dtype, s):
+    """Two batch rows, batch 1's K scaled by 8 and its V negated: the last
+    key tile of batch 0 reaches past S (TMA's zero fill, not batch 1's
+    first keys), and batch 1's tiles start at its own keys; a tile that
+    read across the boundary would mix batch 1's sharp scores and negated
+    values into batch 0, or batch 0's into batch 1.  (V keeps its
+    magnitude: 1e-2 is sized for p rounded to bf16 against values of
+    order 1.)"""
+    b, hkv, g, d = 2, 2, 3, 64
+    gen = torch.Generator().manual_seed(s + 1)
+    q = _randn(gen, b, s, hkv, g, d, device=cuda)
+    k = _randn(gen, b, s, hkv, d, device=cuda)
+    v = _randn(gen, b, s, hkv, d, device=cuda)
+    k[1] *= 8
+    v[1] *= -1
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, 512)
+    want = ref.flash_attention(q, k, v, 512)
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+def test_flash_attention_one_key_in_last_tile(cuda, dtype, d):
+    """S = 129: the bf16 body's 128-key tile and one key in the next, which
+    only the last positions see (the f32 body's 64-key tiles: two and
+    one); G 2 at every head dim."""
+    _flash_case(cuda, dtype, 1, 129, 2, 2, d, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [112, 128])
+@pytest.mark.parametrize("s", [100, 4096])
+def test_flash_attention_g3_wide_heads(cuda, dtype, d, s):
+    """G 3 at the wide head dims: a CTA's 128 rows start mid-position and
+    a consumer's 64 rows end mid-position, at D 112 (TMA's zero columns)
+    and 128."""
+    _flash_case(cuda, dtype, 1, s, 2, 3, d, 0)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+def test_wgmma_layouts_match_numpy(cuda, d, tmp_path):
+    """``tests/wgmma_probe.cu`` built with nvcc against csrc/: TMA tensor
+    loads in each swizzle mode, the descriptors and the wgmma SS and RS
+    products, composed as K8 composes them, give numpy's A K^T and P V
+    exactly (small integers).  The emulated twin of this case runs on the
+    host in ``tests/test_torch_kernels_emulated.py``."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import build
+    src = Path(__file__).resolve().parent / "wgmma_probe.cu"
+    lib_path = tmp_path / "libwgmma_probe.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                    "-o", str(lib_path), str(src)], check=True,
+                   capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.wgmma_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7
+    lib.wgmma_probe.restype = ctypes.c_int
+    rng = np.random.default_rng(d)
+    a, k, v = (rng.integers(-4, 5, (n, d)).astype(np.float32)
+               for n in (64, 128, 128))
+    pm = rng.integers(-2, 3, (64, 128)).astype(np.float32)
+    dp = 128 if d == 112 else d
+    want_r = np.zeros((64, dp), np.float32)
+    want_r[:, :d] = pm @ v
+    ins = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (a, k, v,
+                                                                 pm)]
+    ds = torch.full((64, 128), float("nan"), device=cuda)
+    dr = torch.full((64, dp), float("nan"), device=cuda)
+    err = lib.wgmma_probe(d, *(t.data_ptr() for t in (*ins, ds, dr)),
+                          torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    np.testing.assert_array_equal(ds.cpu().numpy(), a @ k.T)
+    np.testing.assert_array_equal(dr.cpu().numpy(), want_r)
 
 
 @pytest.mark.parametrize("offset", [1, 4])

@@ -12,14 +12,17 @@ scatter bit-equal, the segment sum and the fused layer within rtol=1e-5 /
 scatter (K4, K6) run as synchronous copies and dynamic shared memory as a
 static buffer, so the ring's slot arithmetic is checked but not its
 overlap.  ``__shfl_xor_sync`` and ``__shfl_sync`` exchange through a
-block-wide buffer between two barriers, so every lane of a warp calls them
-together (K8's row reductions, K1's source addresses; a warp that has left
-the kernel drops out of the barriers).  ``ldst.cuh``'s cache-hinted loads
-and stores (K1) become plain ones.  K8's bf16 body runs on ``mma.cuh``'s
-tensor-core primitives; their emulation (``ldmatrix`` plain and
-transposed, the m16n8k16 bf16 product with the PTX ISA's fragment
-layouts, ``cp.async`` with zero fill as a synchronous copy) exchanges
-the same way, and one case holds it against numpy.  This checks the
+block-wide buffer between two barriers of the warp, so every lane of a
+warp calls them together (K8's row reductions, K1's source addresses; a
+lane that has left the kernel drops out of the barrier), while the other
+warps run on (K8's producer waits on a barrier meanwhile).  ``ldst.cuh``'s cache-hinted loads
+and stores (K1) become plain ones.  K8's bf16 body runs on ``wgmma.cuh``'s
+warpgroup primitives and ``tma.cuh``'s tensor-map load; their emulation
+(descriptors decoded as the PTX ISA defines them, operands read through
+the 32/64/128-byte swizzle, the m64nNk16 accumulator and A-fragment
+layouts, TMA boxes with zero fill as synchronous copies, named barriers,
+``setmaxnreg`` as a no-op) is held against numpy by the probe
+``tests/wgmma_probe.cu``, which also runs on the card.  This checks the
 kernels' index math, masking and tile choice; it says nothing about speed
 or about what nvcc accepts, which only the card shows.
 """
@@ -28,6 +31,7 @@ import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -54,6 +58,7 @@ CUDA_RUNTIME_H = r"""
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __align__(n) alignas(n)
+#define __grid_constant__
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorLaunchTimeout = 702, cudaErrorMisalignedAddress = 716 };
@@ -72,6 +77,9 @@ struct dim3 { unsigned x, y, z;
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
+// the kernel's dynamic shared memory (set where it is declared): shared
+// addresses (tma.cuh's smem_addr) are offsets from it
+inline thread_local unsigned char* emu_smem_base = nullptr;
 inline thread_local std::barrier<>* emu_warp_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -93,10 +101,10 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   const unsigned t = threadIdx.x + blockDim.x * (threadIdx.y +
                                                  blockDim.y * threadIdx.z);
   std::memcpy(emu_shfl_buf + 8 * t, &v, sizeof(T));
-  __syncthreads();
+  __syncwarp();
   T out;
   std::memcpy(&out, emu_shfl_buf + 8 * (t ^ lane_mask), sizeof(T));
-  __syncthreads();
+  __syncwarp();
   return out;
 }
 template <class T> T __shfl_sync(unsigned, T v, int src_lane) {
@@ -104,11 +112,11 @@ template <class T> T __shfl_sync(unsigned, T v, int src_lane) {
   const unsigned t = threadIdx.x + blockDim.x * (threadIdx.y +
                                                  blockDim.y * threadIdx.z);
   std::memcpy(emu_shfl_buf + 8 * t, &v, sizeof(T));
-  __syncthreads();
+  __syncwarp();
   T out;
   std::memcpy(&out, emu_shfl_buf + 8 * ((t & ~31u) + (src_lane & 31)),
               sizeof(T));
-  __syncthreads();
+  __syncwarp();
   return out;
 }
 template <class F> void emu_launch(dim3 grid, dim3 block, F f) {
@@ -156,79 +164,135 @@ inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
 inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
 """
 
-# mma.cuh's primitives with the PTX ISA's per-lane fragment layouts
-# (groupID = lane >> 2, the lane's column pair 2 * (lane & 3)).  Lanes
-# exchange row addresses and fragments through block-wide buffers between
-# two barriers, like the shuffle, so every thread of the block calls them
-# together.  The product sums each k16 step in f32 and adds it to D.
-MMA_H = r"""
+# wgmma.cuh's primitives as the PTX ISA defines them.  A descriptor is
+# decoded as the hardware does (start, LBO, SBO, layout type) and each
+# operand element read from shared memory through the canonical K-major or
+# MN-major layout and the 32/64/128-byte swizzle of its address; a thread
+# computes its own accumulator elements (the m64nNk16 D layout), so an
+# SS product needs no exchange.  The RS product's A fragments (the m16n8k16
+# layout, a 16-row slice a warp) are exchanged between the lanes of a warp
+# through a block-wide buffer between two warp barriers.  Products run
+# synchronously at issue, so fence / commit / wait are no-ops, as is
+# setmaxnreg.  Named barriers count threads per id and fail the launch
+# after EMU_WAIT_SECONDS instead of hanging.
+WGMMA_H = r"""
 #pragma once
+#include <chrono>
+#include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include "cuda_runtime.h"
 #include "cuda_bf16.h"
-inline unsigned emu_tid() {
-  return threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
-}
-inline const void* emu_rows[1024];
-inline uint32_t emu_frags[1024][6];
-inline uint32_t emu_b16(const void* row, int col) {
-  uint16_t x; std::memcpy(&x, static_cast<const char*>(row) + 2 * col, 2);
-  return x; }
-inline void emu_ldmatrix(uint32_t (&r)[4], const void* row, bool trans) {
-  const unsigned t = emu_tid(), warp0 = t & ~31u, lane = t & 31u;
-  emu_rows[t] = row;
-  __syncthreads();
-  const int gr = lane >> 2, c = 2 * (lane & 3);
-  for (int j = 0; j < 4; ++j) {
-    const void* const* m = emu_rows + warp0 + 8 * j;  // matrix j's rows
-    r[j] = trans ? emu_b16(m[c], gr) | emu_b16(m[c + 1], gr) << 16
-                 : emu_b16(m[gr], c) | emu_b16(m[gr], c + 1) << 16;
-  }
-  __syncthreads();
-}
-inline void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-  emu_ldmatrix(r, row, false); }
-inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  emu_ldmatrix(r, row, true); }
-inline float emu_bf(uint32_t w, int hi) {
-  __nv_bfloat16 b; b.x = (unsigned short)(hi ? w >> 16 : w & 0xFFFFu);
-  return __bfloat162float(b); }
-inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                           uint32_t b0, uint32_t b1) {
-  const unsigned t = emu_tid(), warp0 = t & ~31u, lane = t & 31u;
-  const uint32_t mine[6] = {a[0], a[1], a[2], a[3], b0, b1};
-  std::memcpy(emu_frags[t], mine, sizeof mine);
-  __syncthreads();
-  float A[16][16], B[16][8];
-  for (int l = 0; l < 32; ++l) {
-    const uint32_t* f = emu_frags[warp0 + l];
-    const int gr = l >> 2, c = 2 * (l & 3);
-    for (int e = 0; e < 2; ++e) {
-      A[gr][c + e] = emu_bf(f[0], e);
-      A[gr + 8][c + e] = emu_bf(f[1], e);
-      A[gr][c + 8 + e] = emu_bf(f[2], e);
-      A[gr + 8][c + 8 + e] = emu_bf(f[3], e);
-      B[c + e][gr] = emu_bf(f[4], e);
-      B[c + 8 + e][gr] = emu_bf(f[5], e);
-    }
-  }
-  __syncthreads();
-  const int gr = lane >> 2, c = 2 * (lane & 3);
-  for (int i = 0; i < 4; ++i) {
-    const int row = gr + 8 * (i >> 1), col = c + (i & 1);
-    float sum = 0.f;
-    for (int kk = 0; kk < 16; ++kk) sum += A[row][kk] * B[kk][col];
-    d[i] += sum;
+#include "tma.cuh"
+__host__ __device__ constexpr uint64_t wgmma_layout_type(int w) {
+  return w == 128 ? 1 : w == 64 ? 2 : 3; }
+inline uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                          int swizzle_bytes) {
+  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) |
+         uint64_t((lbo >> 4) & 0x3FFF) << 16 |
+         uint64_t((sbo >> 4) & 0x3FFF) << 32 |
+         wgmma_layout_type(swizzle_bytes) << 62; }
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N> inline void wgmma_wait() {}
+template <int R> inline void wgmma_fence_acc(float (&)[R]) {}
+template <int R> inline void setmaxnreg_inc() {}
+template <int R> inline void setmaxnreg_dec() {}
+struct EmuNamedBar { std::mutex m; std::condition_variable cv;
+                     int arrived = 0; unsigned gen = 0; };
+inline EmuNamedBar emu_named[16];
+inline void emu_named_bar(int id, int count, bool wait) {
+  EmuNamedBar& nb = emu_named[id];
+  std::unique_lock<std::mutex> lk(nb.m);
+  const unsigned gen = nb.gen;
+  if (++nb.arrived == count) {
+    nb.arrived = 0;
+    ++nb.gen;
+    nb.cv.notify_all();
+  } else if (wait && !nb.cv.wait_for(
+      lk, std::chrono::seconds(EMU_WAIT_SECONDS),
+      [&] { return nb.gen != gen || emu_error.load(); })) {
+    emu_error = cudaErrorLaunchTimeout;
   }
 }
-inline void cp_async_16(void* dst, const void* src, bool valid) {
-  if (valid) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16); }
-inline void cp_async_commit() {}
-template <int N> inline void cp_async_wait() {}
+inline void named_bar_sync(int id, int count) {
+  emu_named_bar(id, count, true); }
+inline void named_bar_arrive(int id, int count) {
+  emu_named_bar(id, count, false); }
 inline uint32_t pack_bf16x2(float lo, float hi) {
   return uint32_t(__float2bfloat16_rn(lo).x) |
          uint32_t(__float2bfloat16_rn(hi).x) << 16; }
+inline float exp2_ftz(float x) {
+  const float y = std::exp2(x);
+  return std::fpclassify(y) == FP_SUBNORMAL ? 0.f : y; }
+inline float emu_bf(uint16_t x) {
+  __nv_bfloat16 b; b.x = x; return __bfloat162float(b); }
+// element (mn, k) of the operand a descriptor names
+inline float emu_operand(uint64_t desc, int mn, int k, bool k_major) {
+  const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
+  const uint32_t lbo = uint32_t((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = uint32_t((desc >> 32) & 0x3FFF) << 4;
+  const int type = int(desc >> 62);
+  const uint32_t w = type == 1 ? 128 : type == 2 ? 64 : 32;
+  if (type == 0) emu_error = cudaErrorInvalidValue;  // K8 always swizzles
+  const uint32_t off = k_major
+      ? start + (mn % 8) * w + (mn / 8) * sbo + 2 * k
+      : start + 2 * (mn % (w / 2)) + (mn / (w / 2)) * lbo + (k % 8) * w +
+            (k / 8) * sbo;
+  const uint32_t at = off ^ (((off >> 7) & (w / 16 - 1)) << 4);
+  uint16_t x;
+  std::memcpy(&x, emu_smem_base + at, 2);
+  return emu_bf(x);
+}
+template <int N> void emu_store(float (&d)[N / 2], int scale_d, int j,
+                                int i, float sum) {
+  d[4 * j + i] = (scale_d ? d[4 * j + i] : 0.f) + sum; }
+template <int N>
+inline void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                     int scale_d) {
+  const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+  for (int j = 0; j < N / 8; ++j)
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * w + l / 4 + 8 * (i >> 1);
+      const int col = 8 * j + 2 * (l % 4) + (i & 1);
+      float sum = 0.f;
+      for (int k = 0; k < 16; ++k)
+        sum += emu_operand(a, row, k, true) * emu_operand(b, col, k, true);
+      emu_store<N>(d, scale_d, j, i, sum);
+    }
+}
+inline uint32_t emu_afrag[1024][4];
+template <int N>
+inline void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                     int scale_d) {
+  const unsigned tid = threadIdx.x, lane = tid & 31u;
+  std::memcpy(emu_afrag[tid], a, sizeof a);
+  __syncwarp();
+  float A[16][16];   // this warp's 16-row slice
+  for (int q = 0; q < 32; ++q) {
+    const uint32_t* f = emu_afrag[tid - lane + q];
+    const int gr = q / 4, c = 2 * (q % 4);
+    for (int e = 0; e < 2; ++e) {
+      A[gr][c + e] = emu_bf(uint16_t(e ? f[0] >> 16 : f[0] & 0xFFFFu));
+      A[gr + 8][c + e] = emu_bf(uint16_t(e ? f[1] >> 16 : f[1] & 0xFFFFu));
+      A[gr][c + 8 + e] = emu_bf(uint16_t(e ? f[2] >> 16 : f[2] & 0xFFFFu));
+      A[gr + 8][c + 8 + e] =
+          emu_bf(uint16_t(e ? f[3] >> 16 : f[3] & 0xFFFFu));
+    }
+  }
+  __syncwarp();
+  for (int j = 0; j < N / 8; ++j)
+    for (int i = 0; i < 4; ++i) {
+      const int row = lane / 4 + 8 * (i >> 1);
+      const int col = 8 * j + 2 * (lane % 4) + (i & 1);
+      float sum = 0.f;
+      for (int k = 0; k < 16; ++k)
+        sum += A[row][k] * emu_operand(b, col, k, false);
+      emu_store<N>(d, scale_d, j, i, sum);
+    }
+}
 """
 
 # tma.cuh's primitives as the PTX ISA defines them.  An mbarrier keeps,
@@ -331,6 +395,57 @@ inline void bulk_commit() {}
 inline void fence_proxy_async() {}
 template <int N> inline void bulk_wait_read() {}
 template <int N> inline void bulk_wait() {}
+inline uint32_t smem_addr(const void* p) {
+  return uint32_t(static_cast<const unsigned char*>(p) - emu_smem_base); }
+struct CUtensorMap { const unsigned char* base; uint64_t dims[4];
+                     uint64_t strides[3]; uint32_t box[4]; int swizzle; };
+inline cudaError_t encode_tensor_map_4d(CUtensorMap* map, const void* base,
+                                        const uint64_t (&dims)[4],
+                                        const uint64_t (&strides)[3],
+                                        const uint32_t (&box)[4],
+                                        int swizzle_bytes) {
+  bool ok = uintptr_t(base) % 16 == 0 && box[0] * 2 == uint32_t(
+      swizzle_bytes) && (swizzle_bytes == 32 || swizzle_bytes == 64 ||
+                         swizzle_bytes == 128);
+  for (int i = 0; i < 3; ++i) ok = ok && strides[i] % 16 == 0;
+  for (int i = 0; i < 4; ++i) ok = ok && box[i] >= 1 && box[i] <= 256;
+  if (!ok) return cudaErrorInvalidValue;
+  map->base = static_cast<const unsigned char*>(base);
+  std::memcpy(map->dims, dims, sizeof dims);
+  std::memcpy(map->strides, strides, sizeof strides);
+  std::memcpy(map->box, box, sizeof box);
+  map->swizzle = swizzle_bytes;
+  return cudaSuccess;
+}
+// one box, rows of box[0] bf16 (one swizzle row each), coordinates outside
+// the tensor read as zero; the destination must start a swizzle span
+inline void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                        int c2, int c3, uint64_t* bar) {
+  const uint32_t w = uint32_t(map->swizzle), at0 = smem_addr(dst);
+  if (at0 % (8 * w)) { emu_error = cudaErrorMisalignedAddress; return; }
+  const int c[4] = {c0, c1, c2, c3};
+  uint32_t row = 0;
+  for (uint32_t i3 = 0; i3 < map->box[3]; ++i3)
+  for (uint32_t i2 = 0; i2 < map->box[2]; ++i2)
+  for (uint32_t i1 = 0; i1 < map->box[1]; ++i1, ++row)
+    for (uint32_t e = 0; e < map->box[0]; ++e) {
+      const int64_t x[4] = {int64_t(c[0]) + e, int64_t(c[1]) + i1,
+                            int64_t(c[2]) + i2, int64_t(c[3]) + i3};
+      bool in = true;
+      for (int i = 0; i < 4; ++i)
+        in = in && x[i] >= 0 && uint64_t(x[i]) < map->dims[i];
+      uint16_t v = 0;
+      if (in)
+        std::memcpy(&v, map->base + 2 * x[0] + x[1] * map->strides[0] +
+                        x[2] * map->strides[1] + x[3] * map->strides[2], 2);
+      const uint32_t off = at0 + row * w + 2 * e;
+      std::memcpy(emu_smem_base + (off ^ (((off >> 7) & (w / 16 - 1)) << 4)),
+                  &v, 2);
+    }
+  const uint32_t bytes = 2 * map->box[0] * map->box[1] * map->box[2] *
+                         map->box[3];
+  emu_mbar_update(bar, [&](EmuMbar& b) { b.tx -= bytes; });
+}
 """
 
 # ldst.cuh's cache-hinted loads and stores as plain ones: the hints change
@@ -365,8 +480,8 @@ def _emulated(src: str) -> str:
                 f"[&]{{ {m.group(1)}({m.group(3)}); }});")
     # blocks run one after another here, so one static buffer per kernel
     # serves as its dynamic shared memory
-    src = _DYNAMIC_SMEM.sub(r"alignas(16) static unsigned char \2[1 << 18];",
-                            src)
+    src = _DYNAMIC_SMEM.sub(r"alignas(1024) static unsigned char \2[1 << 18]; "
+                            r"emu_smem_base = \2;", src)
     return _LAUNCH.sub(repl, src)
 
 
@@ -375,7 +490,7 @@ def _write_headers(out):
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
     (out / "cuda_pipeline.h").write_text(CUDA_PIPELINE_H)
-    (out / "mma.cuh").write_text(MMA_H)
+    (out / "wgmma.cuh").write_text(WGMMA_H)
     (out / "tma.cuh").write_text(TMA_H)
     (out / "ldst.cuh").write_text(LDST_H)
     shutil.copy(build.CSRC / "common.cuh", out / "common.cuh")
@@ -720,7 +835,9 @@ def test_emulated_launches_are_counted(emulated_ops):
     ((2, 20, 1, 1, 64), 0),       # G = 1, two batch rows
     ((1, 40, 1, 2, 128), 2),      # the widest head
     ((1, 70, 1, 1, 112), 0),      # zamba2-7b's head: 7 k16 steps, G = 1
-    ((1, 40, 2, 2, 112), 3)])     # D 112 with GQA, two KV heads
+    ((1, 40, 2, 2, 112), 3),      # D 112 with GQA, two KV heads
+    ((1, 512, 1, 2, 32), 0),      # 4 key tiles: the 3-stage ring wraps
+    ((1, 512, 1, 3, 16), 1)])     # ... with G = 3
 def test_emulated_flash_attention(emulated_ops, dtype, shape, pos0):
     """K8 through its ctypes entry point against the plain flash attention:
     f32 (the FMA body) within 1e-5 (the online softmax sums in another
@@ -739,6 +856,28 @@ def test_emulated_flash_attention(emulated_ops, dtype, shape, pos0):
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=1e-2, atol=1e-2)
     assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_flash_attention_batch_boundary(emulated_ops, dtype):
+    """B 2 at a ragged S 100, batch 1's K scaled by 8 and its V negated:
+    batch 0's 128-key tile reaches past S into TMA's zero fill (the map's
+    S extent), never into batch 1's first keys, and batch 1's tile starts
+    at its own keys; mixing either way would move the outputs far past
+    1e-2.  (V keeps its magnitude: 1e-2 is sized for p rounded to bf16
+    against values of order 1.)"""
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn(2, 100, 1, 2, 64, generator=gen)
+    k = torch.randn(2, 100, 1, 64, generator=gen)
+    v = torch.randn(2, 100, 1, 64, generator=gen)
+    k[1] *= 8
+    v[1] *= -1
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    got = emulated_ops.flash_attention(q, k, v, 512)
+    want = ref.flash_attention(q, k, v, 512)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
@@ -775,76 +914,48 @@ def test_emulated_flash_attention_refuses_other_head_dims(emulated_ops):
                              out.data_ptr(), 1, 8, 1, 1, 24, 0)
 
 
-# One warp: A [16][16] into A-fragments, B as K's row-major [n][k] tile
-# (ldmatrix.x4) and as V's row-major [k][n] tile (ldmatrix.x4.trans), each
-# giving the B-fragments of two n8 tiles, with K8's lane addresses; the
-# four products' C-fragments are written out as [16][16].
-_MMA_LAYOUT_CU = r"""
-#include "common.cuh"
-#include "mma.cuh"
-namespace {
-__global__ void layout_kernel(const __nv_bfloat16* a, const __nv_bfloat16* bk,
-                              const __nv_bfloat16* bv, float* dk, float* dv) {
-  __align__(16) __shared__ __nv_bfloat16 sa[16][24], sk[16][24], sv[16][24];
-  const int lane = threadIdx.x;
-  for (int i = lane; i < 256; i += 32) {
-    sa[i / 16][i % 16] = a[i];
-    sk[i / 16][i % 16] = bk[i];
-    sv[i / 16][i % 16] = bv[i];
-  }
-  __syncthreads();
-  uint32_t af[4], kf[4], vf[4];
-  ldmatrix_x4(af, &sa[(lane & 7) + ((lane >> 3) & 1) * 8][(lane >> 4) * 8]);
-  ldmatrix_x4(kf, &sk[(lane & 7) + (lane >> 4) * 8][((lane >> 3) & 1) * 8]);
-  ldmatrix_x4_trans(vf,
-                    &sv[(lane & 7) + ((lane >> 3) & 1) * 8][(lane >> 4) * 8]);
-  float ck[2][4] = {}, cv[2][4] = {};
-  mma_bf16_16816(ck[0], af, kf[0], kf[1]);
-  mma_bf16_16816(ck[1], af, kf[2], kf[3]);
-  mma_bf16_16816(cv[0], af, vf[0], vf[1]);
-  mma_bf16_16816(cv[1], af, vf[2], vf[3]);
-  for (int n = 0; n < 2; ++n)
-    for (int i = 0; i < 4; ++i) {
-      const int row = (lane >> 2) + 8 * (i >> 1);
-      const int col = 8 * n + 2 * (lane & 3) + (i & 1);
-      dk[row * 16 + col] = ck[n][i];
-      dv[row * 16 + col] = cv[n][i];
-    }
-}
-}  // namespace
-REPRO_API void mma_layout(const void* a, const void* bk, const void* bv,
-                          void* dk, void* dv) {
-  layout_kernel<<<1, 32>>>(static_cast<const __nv_bfloat16*>(a),
-                           static_cast<const __nv_bfloat16*>(bk),
-                           static_cast<const __nv_bfloat16*>(bv),
-                           static_cast<float*>(dk), static_cast<float*>(dv));
-}
-"""
+PROBE_CU = Path(__file__).resolve().parent / "wgmma_probe.cu"
 
 
-def test_emulated_mma_ldmatrix_layouts_match_numpy(tmp_path):
-    """The emulated ldmatrix.x4 / .x4.trans and mma.m16n8k16 compose, with
-    the lane addresses K8 uses, into the products numpy computes: A [16x16]
-    times K^T (two 16x8 tiles from a [key][d] tile) and times V (two 16x8
-    tiles from a [key][d] tile).  Small integers, so every product and sum
-    is exact in bf16 and f32."""
+def probe_inputs(d):
+    """The probe's operands (small integers: every product and sum exact
+    in bf16 and f32) and numpy's products: A K^T [64][128] and P V
+    [64][Dp], zero in the padding columns at D 112."""
+    rng = np.random.default_rng(d)
+    a, k, v = (rng.integers(-4, 5, (n, d)).astype(np.float32)
+               for n in (64, 128, 128))
+    pm = rng.integers(-2, 3, (64, 128)).astype(np.float32)
+    dp = 128 if d == 112 else d
+    want_r = np.zeros((64, dp), np.float32)
+    want_r[:, :d] = pm @ v
+    return [torch.from_numpy(x).to(torch.bfloat16) for x in (a, k, v, pm)], \
+        a @ k.T, want_r
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+def test_emulated_wgmma_layouts_match_numpy(tmp_path, d):
+    """The emulated TMA tensor loads (32-, 64- and 128-byte swizzle, zero
+    columns past D at 112), descriptors and wgmma products compose, as K8
+    composes them, into numpy's products: A K^T with both operands K-major
+    (the SS product, D / 16 k16 steps) and P V with P as A fragments in
+    registers and V read MN-major (the RS product).  The same probe runs
+    on the card in ``tests/test_torch_cuda.py``."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++20 compiler (g++) to emulate the "
                     "CUDA sources")
     _write_headers(tmp_path)
-    lib = ctypes.CDLL(str(_compile(cxx, tmp_path, "mma_layout",
-                                   _MMA_LAYOUT_CU)))
-    lib.mma_layout.argtypes = [ctypes.c_void_p] * 5
-    lib.mma_layout.restype = None
-    rng = np.random.default_rng(0)
-    a, bk, bv = (rng.integers(-4, 5, (16, 16)).astype(np.float32)
-                 for _ in range(3))
-    ts = [torch.from_numpy(x).to(torch.bfloat16) for x in (a, bk, bv)]
-    dk, dv = torch.zeros(16, 16), torch.zeros(16, 16)
-    lib.mma_layout(*(t.data_ptr() for t in (*ts, dk, dv)))
-    np.testing.assert_array_equal(dk.numpy(), a @ bk.T)
-    np.testing.assert_array_equal(dv.numpy(), a @ bv)
+    lib = ctypes.CDLL(str(_compile(cxx, tmp_path, "wgmma_probe",
+                                   PROBE_CU.read_text())))
+    lib.wgmma_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7
+    lib.wgmma_probe.restype = ctypes.c_int
+    ins, want_s, want_r = probe_inputs(d)
+    ds = torch.zeros(64, 128)
+    dr = torch.zeros(64, want_r.shape[1])
+    assert lib.wgmma_probe(d, *(t.data_ptr() for t in (*ins, ds, dr)),
+                           None) == 0
+    np.testing.assert_array_equal(ds.numpy(), want_s)
+    np.testing.assert_array_equal(dr.numpy(), want_r)
 
 
 # One wait on tma.cuh's emulated mbarrier after a bulk copy completed its
