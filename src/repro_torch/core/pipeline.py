@@ -7,10 +7,10 @@ the Data Transfer stage ships i+1 and the trainers execute i (paper
 Fig. 7).  ``depth=0`` runs the stages one after another — the ablation
 baseline of Fig. 11.
 
-Every item carries a ``timings`` dict with each stage's service time and,
-when pipelined, ``<stage>_wait``: how long the stage sat starved on its
-input queue.  A stage that raises stops the feeder, every worker drains to
-its sentinel, and ``run()`` re-raises.
+The consumer's wait for each item, from asking for it to having it, is
+the span ``pipeline.wait`` (``repro_torch.trace``): the output queue's
+get, or at ``depth=0`` the stages run inline.  A stage that raises stops
+the feeder, every worker drains to its sentinel, and ``run()`` re-raises.
 
 A stage that *wedges* (a gather stuck on a dead mount, an injected delay)
 would hang the consumer; with ``watchdog_seconds > 0`` the consumer polls
@@ -30,6 +30,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
+from .. import trace
+
 __all__ = ["PipelineItem", "Stage", "PrefetchPipeline", "PipelineStallError"]
 
 _SENTINEL = object()
@@ -39,7 +41,6 @@ _SENTINEL = object()
 class PipelineItem:
     seq: int
     payload: Any
-    timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -92,13 +93,17 @@ class PrefetchPipeline:
 
     def _run_sequential(self, items: Iterable[PipelineItem]
                         ) -> Iterator[PipelineItem]:
-        for item in items:
-            for st in self.stages:
-                if self.fault_injector is not None:
-                    self.fault_injector.fire(f"pipeline.{st.name}")
-                t0 = time.perf_counter()
-                item = st.fn(item)
-                item.timings[st.name] = time.perf_counter() - t0
+        it = iter(items)
+        while True:
+            with trace.span("pipeline.wait"):
+                item = next(it, _SENTINEL)
+                if item is not _SENTINEL:
+                    for st in self.stages:
+                        if self.fault_injector is not None:
+                            self.fault_injector.fire(f"pipeline.{st.name}")
+                        item = st.fn(item)
+            if item is _SENTINEL:
+                return
             yield item
 
     def _worker(self, st: Stage, q_in: "queue.Queue", q_out: "queue.Queue",
@@ -106,25 +111,20 @@ class PrefetchPipeline:
                 stop: threading.Event, hb: Dict[str, Any]) -> None:
         failed = False
         while True:
-            t_wait = time.perf_counter()
             item = q_in.get()
-            wait = time.perf_counter() - t_wait
             if item is _SENTINEL:
                 q_out.put(_SENTINEL)
                 return
             if failed or stop.is_set():
                 continue            # drain so the feeder never blocks
             try:
-                item.timings[st.name + "_wait"] = wait
                 # (busy, since) tells the watchdog a wedged stage from an
                 # idle one
                 hb["since"] = time.perf_counter()
                 hb["busy"] = True
                 if self.fault_injector is not None:
                     self.fault_injector.fire(f"pipeline.{st.name}")
-                t0 = time.perf_counter()
                 item = st.fn(item)
-                item.timings[st.name] = time.perf_counter() - t0
                 hb["busy"] = False
                 hb["done"] += 1
             except BaseException as e:  # handed to the consumer, re-raised
@@ -153,6 +153,21 @@ class PrefetchPipeline:
                 raise PipelineStallError(
                     hb["name"], now - hb["since"], self.watchdog_seconds,
                     depths, completed)
+
+    def _next_out(self, qs: List["queue.Queue"], poll: Optional[float],
+                  beats: List[Dict[str, Any]],
+                  stop: threading.Event) -> Any:
+        """The next item (or the sentinel) from the output queue, polled
+        every ``poll`` seconds for a stall when the watchdog is on."""
+        if poll is None:
+            return qs[-1].get()
+        while True:
+            try:
+                return qs[-1].get(timeout=poll)
+            except queue.Empty:
+                # nothing can unstick a wedged stage's thread, so give a
+                # diagnosis instead of inheriting its hang
+                self._check_stall(beats, qs, stop)
 
     def run(self, items: Iterable[PipelineItem]) -> Iterator[PipelineItem]:
         self._error = None
@@ -204,16 +219,8 @@ class PrefetchPipeline:
         wd = self.watchdog_seconds
         poll = min(0.2, wd / 5.0) if wd > 0 else None
         while True:
-            if poll is None:
-                item = qs[-1].get()
-            else:
-                try:
-                    item = qs[-1].get(timeout=poll)
-                except queue.Empty:
-                    # nothing can unstick a wedged stage's thread, so give
-                    # a diagnosis instead of inheriting its hang
-                    self._check_stall(beats + [feed_hb], qs, stop)
-                    continue
+            with trace.span("pipeline.wait"):
+                item = self._next_out(qs, poll, beats + [feed_hb], stop)
             if item is _SENTINEL:
                 break
             yield item

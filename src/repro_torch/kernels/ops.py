@@ -25,6 +25,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import trace
 from . import ref
 from .build import library
 
@@ -534,8 +535,9 @@ def _flash_setup(ctx, inputs, output) -> None:
 
 def _flash_backward(ctx, g):
     q, k, v = ctx.saved_tensors
-    d_q, d_k, d_v = ref.flash_attention_vjp(q, k, v, g, ctx.q_block,
-                                            ctx.pos0)
+    with trace.span("attn.vjp"):
+        d_q, d_k, d_v = ref.flash_attention_vjp(q, k, v, g, ctx.q_block,
+                                                ctx.pos0)
     return d_q, d_k, d_v, None, None
 
 

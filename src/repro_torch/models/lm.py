@@ -49,6 +49,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..dist import (carry_context, constrain, constrain_act,
                     constrain_act_serve, constrain_proj, constrain_proj_serve,
                     current_mesh)
@@ -405,6 +406,13 @@ def _embed_inputs(params: LM, cfg: ModelConfig,
     return constrain_act(x)
 
 
+def _traced_unit(unit: Callable, h: torch.Tensor):
+    """One layer unit under its ``lm.layer`` span, which remat runs again
+    when it recomputes the unit in the backward."""
+    with trace.span("lm.layer"):
+        return unit(h)
+
+
 def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
             return_cache: bool):
     """The inputs through every layer: the last hidden state, the layers'
@@ -430,11 +438,12 @@ def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
         if remat:
             # the recompute runs in the backward: on a card in autograd's
             # thread, which must see the mesh too
-            body = carry_context(lambda h, unit=unit: unit(h)[:2])
+            body = carry_context(
+                lambda h, unit=unit: _traced_unit(unit, h)[:2])
             x, aux = checkpoint(body, x, use_reentrant=False,
                                 preserve_rng_state=False)
         else:
-            x, aux, kv = unit(x)
+            x, aux, kv = _traced_unit(unit, x)
             if return_cache and kv is not None:
                 ks.append(kv[0])
                 vs.append(kv[1])
@@ -472,10 +481,12 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
     ``{"attn_kv": (k, v)}`` stacked over attention layers (zamba's sites),
     None for RWKV.  Differentiable: it records for autograd where the
     caller does."""
-    x, aux, caches = _hidden(params, cfg, batch, return_cache)
-    x = _GradCast.apply(_rows(x), cfg.torch_dtype)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = constrain(x @ params.lm_head, ("pod", "data"), None, "model")
+    with trace.span("lm.forward"):
+        x, aux, caches = _hidden(params, cfg, batch, return_cache)
+        x = _GradCast.apply(_rows(x), cfg.torch_dtype)
+        x = rms_norm(x, params.final_norm, cfg.norm_eps)
+        logits = constrain(x @ params.lm_head, ("pod", "data"), None,
+                           "model")
     return logits, aux, caches
 
 
@@ -495,29 +506,31 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
     "tokens"})``, with ``loss = nll + 0.01 * aux``.  A vision prefix's
     positions carry no labels: their logits are dropped first."""
     logits, aux, _ = forward(params, cfg, batch)
-    if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
-        logits = logits[:, torch.as_tensor(batch["vision_embeds"]).shape[1]:]
-    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    logits = _mask_padded(logits, cfg).float()
-    shift_logits = logits[:, :-1]
-    shift_labels = labels[:, 1:]
-    logz = torch.logsumexp(shift_logits, dim=-1)
-    # a negative label indexes from the end, as take_along_axis does; its
-    # position is masked out of the sum
-    idx = torch.where(shift_labels < 0, shift_labels + logits.shape[-1],
-                      shift_labels)
-    if isinstance(shift_logits, DTensor):
-        # the vocab dim may be sharded: a select and a sum over it (the
-        # gather on a sharded dim has no rule that keeps the batch's)
-        hit = torch.arange(logits.shape[-1], device=logits.device) \
-            == idx[..., None]
-        gold = torch.where(hit, shift_logits, 0.0).sum(-1)
-    else:
-        gold = torch.gather(shift_logits, -1, idx[..., None])[..., 0]
-    mask = (shift_labels >= 0).float()
-    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    loss = nll + 0.01 * aux
-    return loss, {"nll": nll, "aux": aux, "tokens": mask.sum()}
+    with trace.span("lm.loss"):
+        if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
+            n_vis = torch.as_tensor(batch["vision_embeds"]).shape[1]
+            logits = logits[:, n_vis:]
+        labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+        logits = _mask_padded(logits, cfg).float()
+        shift_logits = logits[:, :-1]
+        shift_labels = labels[:, 1:]
+        logz = torch.logsumexp(shift_logits, dim=-1)
+        # a negative label indexes from the end, as take_along_axis does;
+        # its position is masked out of the sum
+        idx = torch.where(shift_labels < 0, shift_labels + logits.shape[-1],
+                          shift_labels)
+        if isinstance(shift_logits, DTensor):
+            # the vocab dim may be sharded: a select and a sum over it (the
+            # gather on a sharded dim has no rule that keeps the batch's)
+            hit = torch.arange(logits.shape[-1], device=logits.device) \
+                == idx[..., None]
+            gold = torch.where(hit, shift_logits, 0.0).sum(-1)
+        else:
+            gold = torch.gather(shift_logits, -1, idx[..., None])[..., 0]
+        mask = (shift_labels >= 0).float()
+        nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss = nll + 0.01 * aux
+        return loss, {"nll": nll, "aux": aux, "tokens": mask.sum()}
 
 
 @contextlib.contextmanager
@@ -544,8 +557,10 @@ def value_and_grad(params: LM, cfg: ModelConfig, batch: Dict[str, Any]
         loss, metrics = loss_fn(params, cfg, batch)
         # an unused leaf (the embedding under the audio stub's frame
         # embeddings) gets zeros, as jax.grad gives it
-        grads = torch.autograd.grad(loss, list(named.values()),
-                                    allow_unused=True, materialize_grads=True)
+        with trace.span("lm.backward"):
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
     # under a mesh a gradient comes out partial over the ranks that split
     # the batch: reduce it here, once, to its parameter's layout
     grads = [g.redistribute(p.device_mesh, p.placements)
@@ -595,36 +610,40 @@ def make_train_step(cfg: ModelConfig, optimizer,
     n = int(microbatches)
 
     def apply(params: LM, opt_state, grads, metrics):
-        named = dict(params.named_parameters())
-        updates, opt_state = optimizer.update(grads, opt_state, named)
-        del grads
-        new = apply_updates(named, updates)
-        with torch.no_grad():
-            for k, p in named.items():
-                p.copy_(new[k])
+        with trace.span("optim.step"):
+            named = dict(params.named_parameters())
+            updates, opt_state = optimizer.update(grads, opt_state, named)
+            del grads
+            new = apply_updates(named, updates)
+            with torch.no_grad():
+                for k, p in named.items():
+                    p.copy_(new[k])
         return params, opt_state, metrics
 
     def single(params: LM, opt_state, batch):
-        loss, metrics, grads = value_and_grad(params, cfg, batch)
-        return apply(params, opt_state, grads, dict(metrics, loss=loss))
+        with trace.step(params.lm_head.device):
+            loss, metrics, grads = value_and_grad(params, cfg, batch)
+            return apply(params, opt_state, grads, dict(metrics, loss=loss))
 
     if n <= 1:
         return single
 
     def accumulated(params: LM, opt_state, batch):
-        acc = {k: torch.zeros_like(p, dtype=torch.float32)
-               for k, p in params.named_parameters()}
-        ms = []
-        for one in _split(batch, n):
-            loss, metrics, grads = value_and_grad(params, cfg, one)
-            for k, g in grads.items():
-                acc[k] += g.float()
-            del grads
-            ms.append(dict(metrics, loss=loss))
-        for a in acc.values():
-            a.div_(n)
-        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        return apply(params, opt_state, acc, metrics)
+        with trace.step(params.lm_head.device):
+            acc = {k: torch.zeros_like(p, dtype=torch.float32)
+                   for k, p in params.named_parameters()}
+            ms = []
+            for one in _split(batch, n):
+                loss, metrics, grads = value_and_grad(params, cfg, one)
+                for k, g in grads.items():
+                    acc[k] += g.float()
+                del grads
+                ms.append(dict(metrics, loss=loss))
+            for a in acc.values():
+                a.div_(n)
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+            return apply(params, opt_state, acc, metrics)
 
     return accumulated
 
