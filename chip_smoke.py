@@ -159,16 +159,23 @@ Phases, each printing one JSON line:
   lm_train     LM training at llama3.2-1b full width and depth (bf16,
                attn_impl="flash", remat, random weights from a seed):
                (a) K8's gradient at the training shape [1, 4096, 8, 4, 64]:
-               autograd through ops.flash_attention (K8 forward, the
-               reference's recompute VJP) bit-equal to the plain forward
-               and backward on the card, the forward within K8's
-               tolerance, forward + backward timed beside SDPA's (timed
-               only); (b) TokenPipeline(4 x 4096, depth 2) into
+               autograd through ops.flash_attention (K8's lse forward, its
+               backward kernel) within K8_GRAD_TOL of the plain backward on
+               the card, the forward within K8's tolerance, forward +
+               backward timed beside SDPA's (timed only), the backward
+               kernel alone beside the plain VJP and beside aten's flash
+               backward alone (timed only); the backward kernel alone
+               within K8_GRAD_TOL of the plain VJP, timed, at the other
+               shapes the smoke's training paths give it (the benchmark
+               cell's musicgen-medium [8, 1536, 24, 1, 64], internvl2-1b's
+               G 7, zamba2-7b's D 112); (b) TokenPipeline(4 x
+               4096, depth 2) into
                make_train_step with 4 microbatches and AdamW under the
                cosine schedule, 8 steps: finite losses, ms per step (median
                of steps 2-7), tok/s, peak device memory, K8 launches per
                step equal to 16 layers x 4 microbatches x 2 (forward and
-               remat recompute), then one more step traced (device ms by
+               remat recompute), one backward kernel a layer and
+               microbatch, then one more step traced (device ms by
                kernel kind, idle share); (c) one step through flash and
                one through blocked from the same weights on 1 x 4096
                tokens: losses, global gradient norms and updated
@@ -301,8 +308,9 @@ wgmma body) and times the bf16 body beside ``scaled_dot_product_attention``
 (timed only; the port never calls it), with its achieved TFLOP/s and the
 fraction of its bound it reaches; K8's entry also carries the bf16 body's
 registers a thread, spills and shared bytes a CTA at every head dim
-(``bf16_body``, from the build's ptxas log), and the phase fails on a
-spill or on ptxas serialising its wgmma products.
+(``bf16_body``, from the build's ptxas log; ``bwd_body`` the same for its
+backward kernel), and the phase fails on a spill or on ptxas serialising
+the wgmma products of either.
 
 then the card's name and power limit as nvidia-smi prints them, one
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -351,6 +359,9 @@ K_SOURCES = {
                                "src/repro/kernels/gather_scatter_mm.py:493"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:68"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/ops.py:429 (a jnp VJP; no Pallas kernel)"),
 }
 K6_DEPTHS = (2, 3, 4)        # K6's line reports depth 2
 K4_DEPTHS = (2, 3, 4)        # K4's line reports depth 2
@@ -366,6 +377,10 @@ BF16_TFLOPS = 989e12          # H100 SXM dense bf16 tensor cores (datasheet)
 # (2e-5); bf16, one rounding of an f32 value that may differ in its last
 # bits (1e-2, about one bf16 ulp at |x| <= 2)
 K8_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# K8's bf16 gradient (its backward kernel) against the plain VJP, as a share
+# of each gradient's largest magnitude: P and dS rounded to bf16 as
+# tensor-core operands, f32 sums in another order (tests/test_torch_cuda.py)
+K8_GRAD_TOL = 2e-2
 # Whole bf16 models on two routes (flash vs blocked; card vs host).  The CPU
 # rehearsal (llama3.2-1b widths, 16 layers, vocab cut to 8192, 1 x 512
 # tokens, flash vs blocked) differed by at most 0.078 and on average 0.0127
@@ -839,28 +854,35 @@ def flash_kernel(dev, peak_bw: float) -> dict:
     """K8 at the serve phase's prefill shape (llama3.2-1b: B 4, S 4096, 8
     KV heads of 4 query heads, D 64) against its plain version in f32 and
     bf16, and its time, the plain version's and SDPA's in bf16; with the
-    bf16 body's resources at every head dim (``k8_body``)."""
+    bf16 forward's and backward's resources at every head dim
+    (``k8_body``)."""
     from repro_torch.configs import get_arch
     cfg = get_arch(LM_ARCH)
     res = k8_at(dev, peak_bw, (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv,
                                cfg.n_heads // cfg.n_kv, cfg.hd),
                 cfg.q_block, (torch.float32, torch.bfloat16), timed)
     res["bf16_body"] = k8_body()
+    res["bwd_body"] = k8_body("flash_attention_bwd",
+                              "flash_attention_bwd_smem_bytes")
     return res
 
 
-def k8_body() -> dict:
-    """The bf16 body's resources at each head dim it is built for: ptxas's
-    registers a thread (the launch's: the warpgroups then trade them by
-    setmaxnreg, 24 for the producer, 240 for each consumer), spill bytes
-    and whether it serialised the wgmma products (note C7520), from the
-    build's ``-Xptxas -v`` log; and the dynamic shared bytes a CTA, from
-    the library.  Fails on a spill or on serialised products."""
+def k8_body(name: str = "flash_attention",
+            smem: str = "flash_attention_bf16_smem_bytes") -> dict:
+    """The bf16 body's resources at each head dim it is built for (the
+    forward's ``flash_fwd_wgmma_kernel`` in library ``name``, or the
+    backward's ``flash_bwd_wgmma_kernel``): ptxas's registers a thread
+    (the launch's: the warpgroups then trade them by setmaxnreg, 24 for
+    the producer, 240 for each consumer), spill bytes and whether it
+    serialised the wgmma products (note C7520), from the build's
+    ``-Xptxas -v`` log; and the dynamic shared bytes a CTA, from the
+    library's ``smem`` entry.  Fails on a spill or on serialised
+    products."""
     import re
     from repro_torch.kernels import build
     from repro_torch.kernels.ops import FLASH_HEAD_DIMS
-    log = build._target("flash_attention").with_suffix(".log").read_text()
-    lib = build.library("flash_attention")
+    log = build._target(name).with_suffix(".log").read_text()
+    lib = build.library(name)
     out, fn = {}, None
     serialised = {int(m.group(1)) for m in re.finditer(
         r"C7520\).*?wgmma_kernelILi(\d+)E", log)}
@@ -879,14 +901,14 @@ def k8_body() -> dict:
             dim = int(d.group(1))
             out[dim] = dict(registers=int(m.group(1)), spill_bytes=spill,
                             wgmma_serialised=dim in serialised,
-                            smem_bytes=lib.flash_attention_bf16_smem_bytes(
-                                dim))
+                            smem_bytes=getattr(lib, smem)(dim))
     check(sorted(out) == sorted(FLASH_HEAD_DIMS),
-          f"K8's bf16 body in the ptxas log at {sorted(out)}")
+          f"{name}'s bf16 body in the ptxas log at {sorted(out)}")
     for dim, r in out.items():
-        check(r["spill_bytes"] == 0, f"K8 bf16 body at D {dim} spills: {r}")
+        check(r["spill_bytes"] == 0,
+              f"{name}'s bf16 body at D {dim} spills: {r}")
         check(not r["wgmma_serialised"],
-              f"ptxas serialised K8's wgmma products at D {dim}")
+              f"ptxas serialised {name}'s wgmma products at D {dim}")
     return out
 
 
@@ -2387,11 +2409,101 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+# The benchmark cell musicgen-medium.clips-30s: 8 clips of 1,536 frames
+CELL_CLIPS, CELL_FRAMES = 8, 1536
+
+
+def k8_grad_shapes() -> dict:
+    """The shapes, besides llama's, at which the smoke's training paths
+    launch K8's backward kernel: the benchmark cell's musicgen-medium
+    clips, internvl2-1b's G 7 (lm_moe: 64 // 7 positions a tile, a spare
+    row) and zamba2-7b's D 112 a microbatch (lm_ssm: padded to 128)."""
+    from repro_torch.configs import get_arch
+
+    def shape(arch, b, s):
+        c = get_arch(arch)
+        return [b, s, c.n_kv, c.n_heads // c.n_kv, c.hd]
+    return {"musicgen_cell": shape("musicgen-medium", CELL_CLIPS,
+                                   CELL_FRAMES),
+            "internvl2_frontend": shape("internvl2-1b", 1, FRONTEND_SEQ),
+            "zamba_train": shape(SSM_ZAMBA,
+                                 ZAMBA_TRAIN_BATCH // ZAMBA_TRAIN_MB,
+                                 SSM_TRAIN_SEQ)}
+
+
+def library_backward(q, k, v, out_grad):
+    """A call of aten's flash-attention backward alone
+    (``_scaled_dot_product_flash_attention_backward``) at K8's inputs, from
+    its own forward's output and log-sum-exp, k and v expanded to the G
+    query heads of their KV head (SDPA's layout [B, H, S, D], query head
+    h*G + g on KV head h).  Timed only: the port never calls it."""
+    b, s, hkv, g, d = q.shape
+    qt = q.view(b, s, hkv * g, d).transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (k, v))
+    gt = out_grad.view(b, s, hkv * g, d).transpose(1, 2)
+    o, lse, cq, ck, mq, mk, seed, offset = \
+        torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True)[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        gt, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+
+def k8_grad_at(dev: torch.device, name: str, shape, q_block: int,
+               peak_bw: float) -> dict:
+    """K8's backward kernel alone at one shape: ``flash_attention_vjp_kernel``
+    from the lse forward's output and log-sum-exp against the plain VJP on
+    the card, the same bf16 inputs and cotangent, each gradient within
+    ``K8_GRAD_TOL`` of its largest magnitude; timed beside its bound (5
+    causal products; q, k, v, o and the cotangent read, d_q, d_k, d_v
+    written) and beside aten's flash backward alone."""
+    from repro_torch.kernels import ops, ref
+    b, s, hkv, g, d = shape
+    gen = torch.Generator(device=dev).manual_seed(s * d + g)
+
+    def rand(*sizes):
+        return torch.randn(*sizes, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, cot = rand(b, s, hkv, g, d), rand(b, s, hkv, g, d)
+    k, v = rand(b, s, hkv, d), rand(b, s, hkv, d)
+    o, lse = ops._flash_lse_op(q, k, v, q_block)
+    n0 = ops.kernel_launches()["flash_attention_bwd"]
+    got = ops.flash_attention_vjp_kernel(q, k, v, o, lse, cot)
+    want = ref.flash_attention_vjp(q, k, v, cot, q_block)
+    torch.cuda.synchronize()
+    check(ops.kernel_launches()["flash_attention_bwd"] == n0 + 1,
+          f"K8 backward at {name}: no launch counted")
+    err = {}
+    for leaf, a, w in zip("qkv", got, want):
+        top = float(w.float().abs().max())
+        err[leaf] = max_err(a, w) / top
+        check(a.dtype == w.dtype and a.shape == w.shape
+              and err[leaf] <= K8_GRAD_TOL,
+              f"K8 backward at {name} {shape}: d_{leaf} {err[leaf]} of its "
+              f"largest magnitude {top} from the plain VJP's")
+    del got, want
+    torch.cuda.empty_cache()
+    flops = 5 * b * hkv * g * d * s * s
+    byts = nbytes(q, k, v, o, cot) + nbytes(q, k, v)
+    bound_ms = max(byts / peak_bw, flops / BF16_TFLOPS) * 1e3
+    t = event_timed(lambda: ops.flash_attention_vjp_kernel(
+        q, k, v, o, lse, cot))
+    return dict(name=name, shape=list(shape), max_rel_err=err, **t,
+                bound_ms=bound_ms,
+                bound_by=("bytes" if byts / peak_bw >= flops / BF16_TFLOPS
+                          else "operations"),
+                bound_fraction=bound_ms / t["ms"],
+                **event_timed(library_backward(q, k, v, cot), "library_"))
+
+
 def lm_train_grad(dev: torch.device, peak_bw: float) -> dict:
     """(a) K8's gradient at the training shape: autograd through
-    ``ops.flash_attention`` (K8 forward, the recompute VJP) against the
-    plain forward and backward on the card, the same cotangent; forward +
-    backward timed beside SDPA's (timed only; the port never calls it)."""
+    ``ops.flash_attention`` (K8's lse forward, its backward kernel) against
+    the plain forward and backward on the card, the same cotangent, each
+    gradient within ``K8_GRAD_TOL`` of its largest magnitude; forward +
+    backward timed beside SDPA's (timed only; the port never calls it), and
+    the backward kernel alone beside the plain VJP and aten's flash
+    backward; then the backward kernel alone at ``k8_grad_shapes()``
+    (``k8_grad_at``)."""
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops, ref
@@ -2406,13 +2518,22 @@ def lm_train_grad(dev: torch.device, peak_bw: float) -> dict:
     q, k, v = rand(b, s, hkv, g, d), rand(b, s, hkv, d), rand(b, s, hkv, d)
     cot = rand(b, s, hkv, g, d)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    n0 = ops.kernel_launches()["flash_attention_bwd"]
     out = ops.flash_attention(qg, kg, vg, cfg.q_block)
     got = torch.autograd.grad(out, (qg, kg, vg), cot)
     want = ref.flash_attention_vjp(q, k, v, cot, cfg.q_block)
     torch.cuda.synchronize()
+    check(ops.kernel_launches()["flash_attention_bwd"] == n0 + 1,
+          "K8's bf16 gradient did not launch its backward kernel")
+    grad_err, grad_abs = {}, 0.0
     for name, a, w in zip("qkv", got, want):
-        check(same_bits(a, w), f"K8 gradient d_{name} differs from the "
-              f"plain backward's bits")
+        top = float(w.float().abs().max())
+        grad_abs = max(grad_abs, max_err(a, w))
+        grad_err[name] = max_err(a, w) / top
+        check(a.dtype == w.dtype and a.shape == w.shape
+              and grad_err[name] <= K8_GRAD_TOL,
+              f"K8 gradient d_{name}: {grad_err[name]} of its largest "
+              f"magnitude {top} from the plain backward's")
     fwd_err = close(out.detach(), ref.flash_attention(q, k, v, cfg.q_block),
                     K8_TOL[torch.bfloat16], K8_TOL[torch.bfloat16],
                     "K8 forward at the training shape")
@@ -2430,19 +2551,38 @@ def lm_train_grad(dev: torch.device, peak_bw: float) -> dict:
         return torch.autograd.grad(F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt),
             cot_t)
+    o, lse = ops._flash_lse_op(q, k, v, cfg.q_block)
     # the work: the forward's 2 products and the VJP's 5 (scores again,
     # d_v, d_p, d_q, d_k), each over the causal half of S x S; bytes: q, k,
-    # v and the cotangent read, the output and d_q, d_k, d_v written
+    # v and the cotangent read, the output and d_q, d_k, d_v written (the
+    # backward alone: q, k, v, o and the cotangent read, d_q, d_k, d_v
+    # written)
     flops = 7 * b * hkv * g * d * s * s
     byts = 2 * nbytes(q, k, v, cot) + nbytes(q)
     bound_ms = max(byts / peak_bw, flops / BF16_TFLOPS) * 1e3
+    bwd_flops = 5 * b * hkv * g * d * s * s
+    bwd_byts = nbytes(q, k, v, o, cot) + nbytes(q, k, v)
+    bwd_bound_ms = max(bwd_byts / peak_bw, bwd_flops / BF16_TFLOPS) * 1e3
+    bwd = event_timed(lambda: ops.flash_attention_vjp_kernel(
+        q, k, v, o, lse, cot), "train_bwd_")
     return dict(shape=[b, s, hkv, g, d], dtype="bfloat16",
-                grads_bit_equal=True, forward_max_abs_err=fwd_err,
+                grad_max_rel_err=grad_err, grad_max_abs_err=grad_abs,
+                forward_max_abs_err=fwd_err,
                 **event_timed(port, "train_"),
                 **event_timed(library, "train_library_"),
                 train_bound_ms=bound_ms,
                 train_bound_by=("bytes" if byts / peak_bw
-                                >= flops / BF16_TFLOPS else "operations"))
+                                >= flops / BF16_TFLOPS else "operations"),
+                **bwd,
+                **event_timed(lambda: ref.flash_attention_vjp(
+                    q, k, v, cot, cfg.q_block), "train_bwd_plain_", reps=3),
+                **event_timed(library_backward(q, k, v, cot),
+                              "train_bwd_library_"),
+                train_bwd_bound_ms=bwd_bound_ms,
+                train_bwd_bound_fraction=bwd_bound_ms / bwd["train_bwd_ms"],
+                bwd_by_shape=[k8_grad_at(dev, name, shape, cfg.q_block,
+                                         peak_bw)
+                              for name, shape in k8_grad_shapes().items()])
 
 
 def device_breakdown(step_fn) -> dict:
@@ -2469,7 +2609,7 @@ def device_breakdown(step_fn) -> dict:
         us = e.time_range.end - e.time_range.start
         spans.append((e.time_range.start, e.time_range.end))
         name = e.name.lower()
-        kind = ("k8" if "flash_fwd" in name else
+        kind = ("k8" if "flash_fwd" in name or "flash_bwd" in name else
                 "gemm" if any(t in name for t in ("gemm", "cutlass", "xmma",
                                                   "nvjet", "sm90_")) else
                 "other")
@@ -2535,6 +2675,10 @@ def phase_lm_train(dev: torch.device, build_dir: Path,
           f"layers x {TRAIN_MB} microbatches x (forward + recompute))")
     check(main_launches["flash_attention"] == per_step * TRAIN_STEPS,
           f"K8 launches {main_launches}")
+    check(main_launches["flash_attention_bwd"]
+          == cfg.n_layers * TRAIN_MB * TRAIN_STEPS,
+          f"K8 backward launches {main_launches}, derived one a layer and "
+          f"microbatch")
     med = statistics.median(times[2:])
     last = next(batches)                # one more step, traced
     breakdown = device_breakdown(lambda: step(model, state, last))
@@ -3073,21 +3217,25 @@ def frontend_train(arch: str, dev) -> dict:
     per_step = 2 * cfg.n_layers              # forward + remat recompute
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, times, k8 = [], [], []
+    losses, times, k8, bwd = [], [], [], []
     ops.reset_kernel_launches()
     t_prev = time.perf_counter()
     for batch in batches:
-        n0 = ops.kernel_launches()["flash_attention"]
+        n0 = ops.kernel_launches()
         model, state, m = step(model, state, batch)
         losses.append(float(m["loss"]))
         now = time.perf_counter()
         times.append((now - t_prev) * 1e3)
         t_prev = now
-        k8.append(ops.kernel_launches()["flash_attention"] - n0)
+        n1 = ops.kernel_launches()
+        k8.append(n1["flash_attention"] - n0["flash_attention"])
+        bwd.append(n1["flash_attention_bwd"] - n0["flash_attention_bwd"])
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses), f"{arch} losses {losses}")
     check(k8 == [per_step] * FRONTEND_STEPS, f"{arch} K8 per step {k8}, "
           f"{per_step} derived ({cfg.n_layers} layers x 2)")
+    check(bwd == [cfg.n_layers] * FRONTEND_STEPS, f"{arch} K8 backward "
+          f"per step {bwd}, {cfg.n_layers} derived (one a layer)")
     del model, state, step, opt
     torch.cuda.empty_cache()
     return dict(arch=arch, params=n_params, frontend=cfg.frontend,
@@ -3095,7 +3243,7 @@ def frontend_train(arch: str, dev) -> dict:
                 losses=losses, ms_per_step=times,
                 tok_s=FRONTEND_SEQ / (statistics.median(times[1:]) / 1e3),
                 peak_mem_bytes=peak, k8_per_step=k8, k8_derived=per_step,
-                k8_launches=sum(k8))
+                k8_launches=sum(k8), bwd_per_step=bwd, bwd_launches=sum(bwd))
 
 
 def phase_lm_moe(dev: torch.device, peak_bw: float) -> dict:
@@ -3176,6 +3324,8 @@ def phase_lm_moe(dev: torch.device, peak_bw: float) -> dict:
     res["k8_launches"] = dict(
         scout_prefill=scout["k8_launches"],
         frontends=sum(f["k8_launches"] for f in res["frontends"]))
+    res["bwd_launches"] = dict(
+        frontends=sum(f["bwd_launches"] for f in res["frontends"]))
     emit("lm_moe", **res)
     return res
 
@@ -3461,20 +3611,25 @@ def ssm_train(cfg, dev, batch: int, microbatches: int, opt,
     per_step = 2 * sites * microbatches if cfg.attn_impl == "flash" else 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, times, k8 = [], [], []
+    losses, times, k8, bwd = [], [], [], []
     t_prev = time.perf_counter()
     for b in pipe.batches(SSM_TRAIN_STEPS):
-        n0 = ops.kernel_launches()["flash_attention"]
+        n0 = ops.kernel_launches()
         model, state, m = step(model, state, b)
         losses.append(float(m["loss"]))              # waits for the step
         now = time.perf_counter()
         times.append((now - t_prev) * 1e3)
         t_prev = now
-        k8.append(ops.kernel_launches()["flash_attention"] - n0)
+        n1 = ops.kernel_launches()
+        k8.append(n1["flash_attention"] - n0["flash_attention"])
+        bwd.append(n1["flash_attention_bwd"] - n0["flash_attention_bwd"])
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses), f"{label} losses {losses}")
     check(k8 == [per_step] * SSM_TRAIN_STEPS, f"{label}: K8 a step {k8}, "
           f"{per_step} derived")
+    check(bwd == [per_step // 2] * SSM_TRAIN_STEPS, f"{label}: K8 backward "
+          f"a step {bwd}, {per_step // 2} derived (one a site and "
+          f"microbatch)")
     del model, state, step
     torch.cuda.empty_cache()
     med = statistics.median(times[1:])
@@ -3483,7 +3638,7 @@ def ssm_train(cfg, dev, batch: int, microbatches: int, opt,
                 steps=SSM_TRAIN_STEPS, losses=losses, ms_per_step=times,
                 median_ms=med, tok_s=batch * SSM_TRAIN_SEQ / (med / 1e3),
                 peak_mem_bytes=peak, k8_per_step=k8, k8_derived=per_step,
-                k8_launches=sum(k8))
+                k8_launches=sum(k8), bwd_per_step=bwd, bwd_launches=sum(bwd))
 
 
 def ssm_vs_host(cfg, dev, label: str) -> dict:
@@ -3590,6 +3745,8 @@ def phase_lm_ssm(dev: torch.device, peak_bw: float) -> dict:
     res["k8_launches"] = dict(
         zamba_prefill=zamba["k8_launches"],
         zamba_train=res["zamba_train"]["k8_launches"])
+    res["bwd_launches"] = dict(
+        zamba_train=res["zamba_train"]["bwd_launches"])
     emit("lm_ssm", **res)
     return res
 
@@ -3679,7 +3836,7 @@ def _mesh_rank_run(rank: int) -> dict:
         opt = adamw(TRAIN_LR)
         state = opt.init(dict(model.named_parameters()))
         step = make_train_step(cfg, opt)
-        losses, times, k8 = [], [], []
+        losses, times, k8, bwd = [], [], [], []
         for b in batches:
             ops.reset_kernel_launches()
             torch.cuda.synchronize()
@@ -3689,7 +3846,9 @@ def _mesh_rank_run(rank: int) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             k8.append(ops.kernel_launches()["flash_attention"])
+            bwd.append(ops.kernel_launches()["flash_attention_bwd"])
         res.update(losses=losses, ms_per_step=times, k8_per_step=k8,
+                   bwd_per_step=bwd,
                    layout_kept=all(tuple(p.placements) == placements[k]
                                    for k, p in model.named_parameters()),
                    local_param_bytes=sum(
@@ -3870,6 +4029,9 @@ def phase_mesh(dev: torch.device, work: Path, early: list) -> dict:
             per_step = cfg.n_layers * 2        # forward + remat recompute
             check(r["k8_per_step"] == [per_step] * MESH_STEPS,
                   f"(b) K8 launches {r['k8_per_step']}")
+            check(r["bwd_per_step"] == [cfg.n_layers] * MESH_STEPS,
+                  f"(b) K8 backward launches {r['bwd_per_step']}, one a "
+                  f"layer derived")
             r["max_loss_diff"] = d
             c = r.pop("psum")
             check(all(v <= PSUM_TOL for v in c["max_abs_err"].values()),
@@ -3887,11 +4049,17 @@ def phase_mesh(dev: torch.device, work: Path, early: list) -> dict:
                               "flash", "--model-parallel", "2",
                               "--prefetch-depth", "0"])
         cli_k8 = ops.kernel_launches()["flash_attention"]
+        cli_bwd = ops.kernel_launches()["flash_attention_bwd"]
         check("mesh" not in cli and cli_k8 == cli["k8_launches"] > 0
               and all(math.isfinite(x) for x in cli["losses"]),
               f"(d) {cli}")
+        # one microbatch a step: one backward a layer
+        cli_derived = get_arch("smollm-135m").n_layers * len(cli["losses"])
+        check(cli_bwd == cli_derived, f"(d) K8 backward launches {cli_bwd}, "
+              f"{cli_derived} derived")
         res["one_process_cli"] = dict(losses=cli["losses"],
-                                      k8_launches=cli_k8)
+                                      k8_launches=cli_k8,
+                                      bwd_launches=cli_bwd)
         lap("cli")
         res["dryrun"] = _finish_dryrun(dryrun)
         lap("dryrun_wait")
@@ -3901,6 +4069,9 @@ def phase_mesh(dev: torch.device, work: Path, early: list) -> dict:
     res["k8_launches"] = dict(
         ranks=sum(sum(r["k8_per_step"]) for r in res["dp"]["ranks"]),
         one_process_cli=cli_k8)
+    res["bwd_launches"] = dict(
+        ranks=sum(sum(r["bwd_per_step"]) for r in res["dp"]["ranks"]),
+        one_process_cli=cli_bwd)
     emit("mesh", **res)
     return res
 
@@ -4642,6 +4813,28 @@ def main() -> int:
                     mesh_one_process=mesh_res["k8_launches"][
                         "one_process_cli"])
     launches["flash_attention"] = sum(k8_paths.values())
+    # K8's backward kernel: one a layer (a zamba site) and microbatch on
+    # each training path, each checked against that count in its phase
+    bwd_paths = dict(
+        lm_train=train_res["slice"]["launches"]["flash_attention_bwd"],
+        lm_moe_frontends=moe_res["bwd_launches"]["frontends"],
+        lm_ssm_zamba_train=ssm_res["bwd_launches"]["zamba_train"],
+        mesh_ranks=mesh_res["bwd_launches"]["ranks"],
+        mesh_one_process=mesh_res["bwd_launches"]["one_process_cli"])
+    launches["flash_attention_bwd"] = sum(bwd_paths.values())
+    grad = train_res["grad"]
+    kern["flash_attention_bwd"] = dict(
+        shape=grad["shape"], max_abs_err=grad["grad_max_abs_err"],
+        max_rel_err=grad["grad_max_rel_err"],
+        ms=grad["train_bwd_ms"], call_ms=grad["train_bwd_call_ms"],
+        plain_ms=grad["train_bwd_plain_ms"],
+        plain_call_ms=grad["train_bwd_plain_call_ms"],
+        library_ms=grad["train_bwd_library_ms"],     # aten's flash backward
+        library_call_ms=grad["train_bwd_library_call_ms"],
+        bound_ms=grad["train_bwd_bound_ms"], bound_by="operations",
+        bound_fraction=grad["train_bwd_bound_fraction"],
+        timing=grad["train_bwd_timing"], launches_by_path=bwd_paths,
+        by_shape=grad["bwd_by_shape"])
     k8_keys = ("shape", "max_abs_err", "ms", "call_ms", "plain_ms",
                "library_ms", "bound_ms", "bound_by", "tflops",
                "bound_fraction", "timing")
@@ -4663,11 +4856,13 @@ def main() -> int:
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             call_ms=k["call_ms"], library_call_ms=k["library_call_ms"],
-            plain_call_ms=k["plain_call_ms"], timing=TIMING["method"],
+            plain_call_ms=k["plain_call_ms"],
+            timing=k.get("timing", TIMING["method"]),
             **{key: k[key] for key in ("tflops", "bound_fraction",
+                                       "max_rel_err",
                                        "bf16_ms", "bf16_bound_ms",
                                        "cache_less", "peer_gather",
-                                       "bf16_body")
+                                       "bf16_body", "bwd_body", "by_shape")
                if key in k},
             **{key: k[key] for key in k if key.startswith(
                 ("train_", "scout_", "zamba_"))

@@ -68,8 +68,18 @@ _KERNELS: Dict[str, Tuple[str, Dict[str, Tuple[object, List[object]]]]] = {
                                      _I, _I64, _P]),
         "flash_attention_bf16": (_I, [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                       _I, _I64, _P]),
+        "flash_attention_bf16_lse": (_I, [_P, _P, _P, _P, _P, _I64, _I64,
+                                          _I64, _I64, _I, _P]),
         "flash_attention_bf16_smem_bytes": (_I64, [_I]),
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+    }),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", {
+        "flash_attention_bwd_bf16": (_I, [_P] * 10 + [_I64, _I64, _I64, _I64,
+                                                      _I, _P]),
+        "flash_attention_bwd_scratch_floats": (_I64, [_I64, _I64, _I64, _I64,
+                                                      _I]),
+        "flash_attention_bwd_smem_bytes": (_I64, [_I]),
+        "flash_attention_bwd_error_string": (ctypes.c_char_p, [_I]),
     }),
     "segment_sum": ("segment_sum.cu", {
         "segment_sum_f32": (_I, [_P, _P, _P, _I64, _I64, _I, _P]),

@@ -70,7 +70,10 @@
 //   (14 % more MMA work for zamba2-7b) and the store drops them.  The
 //   epilogue multiplies by one reciprocal of max(l, 1e-30) a row, rounds
 //   once to bf16, stages the consumer's rows in its part of the Q tile and
-//   writes 16-byte stores.  The primitives are csrc/wgmma.cuh's and
+//   writes 16-byte stores.  Given an lse pointer (the training forward,
+//   flash_attention_bf16_lse) it also writes each row's log-sum-exp of the
+//   scaled scores, m scale + ln(l) in f32, for the backward
+//   (flash_attention_bwd.cu): 4 bytes a row beside the output's 2 D.  The primitives are csrc/wgmma.cuh's and
 //   csrc/tma.cuh's; scripts/k8_variants.py times the body with each of
 //   these choices taken out.
 //
@@ -95,6 +98,7 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kKeys = 64;  // keys per K/V tile of the f32 body
 
 // ------------------------------------------------------------ f32 body
@@ -337,8 +341,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const bf16* __restrict__ q, bf16* __restrict__ o,
-                       int64_t nb, int64_t s, int64_t hkv, int64_t g,
-                       float scale_log2) {
+                       float* __restrict__ lse, int64_t nb, int64_t s,
+                       int64_t hkv, int64_t g, float scale_log2) {
   using L = Ws<D>;
   constexpr int kDp = L::kDp, kCw = L::kCw, kW = L::kW, KS = L::kStages;
   constexpr int kQRegion = kWsRows * kW;   // bytes of a Q region
@@ -621,6 +625,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       const float inv = 1.f / fmaxf(lt, 1e-30f);
       const int row = row_base + 16 * warp + quad_row + 8 * hf;
+      // the row's log-sum-exp of the scaled scores, for the backward
+      if (lse != nullptr && (lane & 3) == 0 && x.r0 + row < n_rows)
+        lse[(x.b * hkv + x.h) * n_rows + x.r0 + row] =
+            (m[hf] * scale_log2 + log2f(lt)) * kLn2;
 #pragma unroll
       for (int j = 0; j < kDp / 8; ++j)
         *reinterpret_cast<uint32_t*>(q_at(row, 2 * (8 * j + quad_col))) =
@@ -668,8 +676,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int64_t b, int64_t s, int64_t hkv, int64_t g,
-                        cudaStream_t st) {
+                        float* lse, int64_t b, int64_t s, int64_t hkv,
+                        int64_t g, cudaStream_t st) {
   using L = Ws<D>;
   // k and v as 4-D tensors (D, Hkv, S, B), innermost first, read in boxes
   // of (Cw, 1, kBc, 1): keys past S (and so batch b + 1) read as zeros
@@ -696,22 +704,23 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const int64_t grid = ceil_div(s * g, kWsRows) * hkv * b;
   flash_fwd_wgmma_kernel<D><<<static_cast<unsigned>(grid), kWsThreads,
                               L::kSmem, st>>>(
-      kmap, vmap, static_cast<const bf16*>(q), static_cast<bf16*>(o), b, s,
-      hkv, g, static_cast<float>(inv_sqrt_d<D>() * kLog2e));
+      kmap, vmap, static_cast<const bf16*>(q), static_cast<bf16*>(o), lse, b,
+      s, hkv, g, static_cast<float>(inv_sqrt_d<D>() * kLog2e));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_d(bool is_bf16, const void* q, const void* k,
-                     const void* v, void* o, int64_t b, int64_t s,
-                     int64_t hkv, int64_t g, int64_t pos0, cudaStream_t st) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, o, b, s, hkv, g, st)
+                     const void* v, void* o, float* lse, int64_t b,
+                     int64_t s, int64_t hkv, int64_t g, int64_t pos0,
+                     cudaStream_t st) {
+  return is_bf16 ? launch_bf16<D>(q, k, v, o, lse, b, s, hkv, g, st)
                  : launch_f32<D>(q, k, v, o, b, s, hkv, g, pos0, st);
 }
 
 int launch(bool is_bf16, const void* q, const void* k, const void* v,
-           void* o, int64_t b, int64_t s, int64_t hkv, int64_t g, int d,
-           int64_t pos0, void* stream) {
+           void* o, float* lse, int64_t b, int64_t s, int64_t hkv, int64_t g,
+           int d, int64_t pos0, void* stream) {
   if (b <= 0 || s <= 0 || hkv <= 0 || g <= 0)
     return static_cast<int>(cudaSuccess);
   // both bodies move 16-byte units (float4; cp.async and uint4 for bf16)
@@ -722,19 +731,19 @@ int launch(bool is_bf16, const void* q, const void* k, const void* v,
   switch (d) {
     case 16:
       return static_cast<int>(
-          launch_d<16>(is_bf16, q, k, v, o, b, s, hkv, g, pos0, st));
+          launch_d<16>(is_bf16, q, k, v, o, lse, b, s, hkv, g, pos0, st));
     case 32:
       return static_cast<int>(
-          launch_d<32>(is_bf16, q, k, v, o, b, s, hkv, g, pos0, st));
+          launch_d<32>(is_bf16, q, k, v, o, lse, b, s, hkv, g, pos0, st));
     case 64:
       return static_cast<int>(
-          launch_d<64>(is_bf16, q, k, v, o, b, s, hkv, g, pos0, st));
+          launch_d<64>(is_bf16, q, k, v, o, lse, b, s, hkv, g, pos0, st));
     case 112:
       return static_cast<int>(
-          launch_d<112>(is_bf16, q, k, v, o, b, s, hkv, g, pos0, st));
+          launch_d<112>(is_bf16, q, k, v, o, lse, b, s, hkv, g, pos0, st));
     case 128:
       return static_cast<int>(
-          launch_d<128>(is_bf16, q, k, v, o, b, s, hkv, g, pos0, st));
+          launch_d<128>(is_bf16, q, k, v, o, lse, b, s, hkv, g, pos0, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -748,14 +757,26 @@ REPRO_API int flash_attention_f32(const void* q, const void* k, const void* v,
                                   void* o, int64_t b, int64_t s, int64_t hkv,
                                   int64_t g, int d, int64_t pos0,
                                   void* stream) {
-  return launch(false, q, k, v, o, b, s, hkv, g, d, pos0, stream);
+  return launch(false, q, k, v, o, nullptr, b, s, hkv, g, d, pos0, stream);
 }
 
 REPRO_API int flash_attention_bf16(const void* q, const void* k,
                                    const void* v, void* o, int64_t b,
                                    int64_t s, int64_t hkv, int64_t g, int d,
                                    int64_t pos0, void* stream) {
-  return launch(true, q, k, v, o, b, s, hkv, g, d, pos0, stream);
+  return launch(true, q, k, v, o, nullptr, b, s, hkv, g, d, pos0, stream);
+}
+
+// The bf16 body that also writes each row's log-sum-exp of the scaled
+// scores, lse [b, hkv, s, g] f32 (natural log), which the backward
+// (flash_attention_bwd.cu) reads.
+REPRO_API int flash_attention_bf16_lse(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int64_t b, int64_t s, int64_t hkv,
+                                       int64_t g, int d, void* stream) {
+  if (!aligned_to(lse, 4)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(true, q, k, v, o, static_cast<float*>(lse), b, s, hkv, g, d,
+                0, stream);
 }
 
 // Dynamic shared bytes a CTA of the bf16 body takes at head dim d (0 for

@@ -1,6 +1,6 @@
 // Hopper's bulk-copy engine (TMA) and shared-memory barriers (mbarrier),
 // used by K2's and K4's ring bodies (fused_update.cu, cache_combine.cu) and
-// K8's bf16 body (flash_attention.cu).
+// K8's bf16 bodies (flash_attention.cu, flash_attention_bwd.cu).
 //
 //   mbar_init / fence_mbarrier_init   one thread sets a barrier's arrival
 //                                     count; the fence publishes it
@@ -30,8 +30,9 @@
 //                                     elements outside the tensor zero;
 //                                     completes the box's whole bytes on a
 //                                     barrier
-//   encode_tensor_map_4d (host)       cuTensorMapEncodeTiled for a bf16
-//                                     4-D tensor, taken from the driver
+//   tma_load_5d                       the same over a 5-D tensor map
+//   encode_tensor_map_4d / _5d (host) cuTensorMapEncodeTiled for a bf16
+//                                     4-D / 5-D tensor, taken from the driver
 //                                     through the runtime's entry-point
 //                                     query (CUDA 12.5 on), so no library
 //                                     links -lcuda
@@ -139,17 +140,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A bf16 tensor of dims[0] (innermost, contiguous) x dims[1..3] with byte
-// strides strides[0..2] of dims 1..3, read in boxes of box[0..3] elements
-// with `swizzle_bytes` (32, 64 or 128) swizzle; elements outside the
-// tensor read as zero.  Returns cudaErrorInvalidValue where the driver
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global."
+      "mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A bf16 tensor of dims[0] (innermost, contiguous) x dims[1..R-1] with byte
+// strides strides[0..R-2] of dims 1..R-1, read in boxes of box[0..R-1]
+// elements with `swizzle_bytes` (32, 64 or 128) swizzle; elements outside
+// the tensor read as zero.  Returns cudaErrorInvalidValue where the driver
 // refuses the map (alignment, strides, box) or has no such entry point.
-static inline cudaError_t encode_tensor_map_4d(CUtensorMap* map,
-                                               const void* base,
-                                               const uint64_t (&dims)[4],
-                                               const uint64_t (&strides)[3],
-                                               const uint32_t (&box)[4],
-                                               int swizzle_bytes) {
+template <int R>
+static inline cudaError_t encode_tensor_map(CUtensorMap* map,
+                                            const void* base,
+                                            const uint64_t (&dims)[R],
+                                            const uint64_t (&strides)[R - 1],
+                                            const uint32_t (&box)[R],
+                                            int swizzle_bytes) {
   using Encode = decltype(&cuTensorMapEncodeTiled);
   static const Encode encode = [] {
     void* fn = nullptr;
@@ -161,17 +174,39 @@ static inline cudaError_t encode_tensor_map_4d(CUtensorMap* map,
                : nullptr;
   }();
   if (encode == nullptr) return cudaErrorInvalidValue;
-  const cuuint64_t dim[4] = {dims[0], dims[1], dims[2], dims[3]};
-  const cuuint64_t stride[3] = {strides[0], strides[1], strides[2]};
-  const cuuint32_t boxes[4] = {box[0], box[1], box[2], box[3]};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  cuuint64_t dim[R], stride[R - 1];
+  cuuint32_t boxes[R], unit[R];
+  for (int i = 0; i < R; ++i) {
+    dim[i] = dims[i];
+    boxes[i] = box[i];
+    unit[i] = 1;
+    if (i + 1 < R) stride[i] = strides[i];
+  }
   const CUtensorMapSwizzle swizzle =
       swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
       : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                             : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dim,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base), dim,
       stride, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+static inline cudaError_t encode_tensor_map_4d(CUtensorMap* map,
+                                               const void* base,
+                                               const uint64_t (&dims)[4],
+                                               const uint64_t (&strides)[3],
+                                               const uint32_t (&box)[4],
+                                               int swizzle_bytes) {
+  return encode_tensor_map<4>(map, base, dims, strides, box, swizzle_bytes);
+}
+
+static inline cudaError_t encode_tensor_map_5d(CUtensorMap* map,
+                                               const void* base,
+                                               const uint64_t (&dims)[5],
+                                               const uint64_t (&strides)[4],
+                                               const uint32_t (&box)[5],
+                                               int swizzle_bytes) {
+  return encode_tensor_map<5>(map, base, dims, strides, box, swizzle_bytes);
 }

@@ -1,6 +1,6 @@
 // Hopper's warpgroup tensor-core products (wgmma), register hand-off
 // between warpgroups (setmaxnreg) and named barriers, used by K8's bf16
-// body (flash_attention.cu).  Every function here is warpgroup-collective
+// bodies (flash_attention.cu, flash_attention_bwd.cu).  Every function here is warpgroup-collective
 // (the ".sync.aligned" forms): the 128 threads of a warpgroup call it
 // together, in uniform control flow.
 //
@@ -15,6 +15,9 @@
 //                              m16n8k16 A-fragment layout, one 16-row slice
 //                              a warp) and B [16][N] MN-major in shared
 //                              memory (the transpose bit set)
+//   wgmma_ss_mn<N>             the SS product with both operands MN-major
+//                              in shared memory, A stored [16][64] and B
+//                              [16][N] (both transpose bits set)
 //   wgmma_fence                order register and shared-memory writes
 //                              before the next wgmma that reads them
 //   wgmma_commit / wgmma_wait  close a group of issued products / wait until
@@ -123,6 +126,10 @@ __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
 template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                          uint64_t b, int scale_d);
+
+template <int N>
+__device__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t a, uint64_t b,
+                            int scale_d);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
@@ -273,3 +280,53 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<16>(float (&d)[8], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<32>(float (&d)[16], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}

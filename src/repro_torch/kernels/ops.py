@@ -11,10 +11,13 @@ Each launch adds one to its kernel's counter (``kernel_launches()``) and to
 its kernel's count on the card it ran on (``kernel_launches_by_device()``),
 so a run can show that its main path went through the kernels, and on
 which cards.  The two layer kernels sit inside ``torch.autograd.Function``s
-and flash attention in a custom op (``torch.library.custom_op``) whose
-autograd is registered; their backwards are the reference's VJPs
-(``repro/kernels/ops.py:343-357``, ``:414-445`` and ``:458-480``), written
-as torch ops: the reference has no Pallas backward either.
+and flash attention in custom ops (``torch.library.custom_op``) whose
+autograd is registered.  The layer kernels' backwards are the reference's
+VJPs (``repro/kernels/ops.py:343-357`` and ``:458-480``), written as torch
+ops: the reference has no Pallas backward either.  Flash attention's
+gradient on bf16 CUDA tensors is a kernel of its own
+(``csrc/flash_attention_bwd.cu``); elsewhere it is the reference's
+recompute VJP (``:414-445``) as torch ops.
 """
 from __future__ import annotations
 
@@ -32,14 +35,15 @@ from .build import library
 __all__ = ["assemble_features", "assemble_features_sharded", "gather_rows",
            "cache_combine_legacy", "update_cache_rows", "scatter_rows_",
            "segment_weighted_sum_regular", "fused_gnn_update",
-           "flash_attention", "FLASH_HEAD_DIMS", "kernel_launches",
+           "flash_attention", "flash_attention_vjp_kernel", "FLASH_HEAD_DIMS",
+           "FLASH_BWD_MAX_GROUP", "kernel_launches",
            "kernel_launches_by_device", "reset_kernel_launches", "KERNELS",
            "COMBINE_ROW_BLOCK", "UPDATE_ROW_BLOCK", "MAX_RING_BYTES"]
 
 # kernel name -> the wrapper's counter; bumped only where a kernel launches
 KERNELS = ("cache_combine", "cache_combine_pipelined", "cache_combine_legacy",
            "cache_update", "cache_update_pipelined", "fused_update",
-           "segment_sum", "flash_attention")
+           "segment_sum", "flash_attention", "flash_attention_bwd")
 # kernel -> the library (csrc source) that holds it, where the names differ
 _LIBRARY = {"cache_combine_pipelined": "cache_combine",
             "cache_combine_legacy": "cache_combine",
@@ -536,6 +540,7 @@ def _flash_setup(ctx, inputs, output) -> None:
 def _flash_backward(ctx, g):
     q, k, v = ctx.saved_tensors
     with trace.span("attn.vjp"):
+        trace.count("vjp_plain")
         d_q, d_k, d_v = ref.flash_attention_vjp(q, k, v, g, ctx.q_block,
                                                 ctx.pos0)
     return d_q, d_k, d_v, None, None
@@ -544,20 +549,128 @@ def _flash_backward(ctx, g):
 _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
+def _flash_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's bf16 forward that also writes each row's log-sum-exp of the
+    scaled scores: ``(out, lse)``, lse ``[B, Hkv, S, G]`` f32 (natural
+    log).  The forward whose gradient is K8's backward kernel; ``pos0``
+    shifts q and k alike and cancels in both, so it takes none."""
+    _flash_check(q, k, v, q_block)
+    b, s, hkv, g, d = (int(x) for x in q.shape)
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"flash attention with lse: bf16 expected, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    _check_tensors("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hkv, s, g), dtype=torch.float32, device=q.device)
+    _launch("flash_attention", "flash_attention_bf16_lse", q, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s,
+            hkv, g, d)
+    return out, lse
+
+
+@_flash_lse_op.register_fake
+def _flash_lse_fake(q, k, v, q_block):
+    _flash_check(q, k, v, q_block)
+    b, s, hkv, g, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, hkv, s, g),
+                                            dtype=torch.float32)
+
+
+def _flash_lse_setup(ctx, inputs, output) -> None:
+    q, k, v, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+
+
+def flash_attention_vjp_kernel(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               lse: torch.Tensor, g: torch.Tensor):
+    """K8's backward kernel: the cotangents ``(d_q, d_k, d_v)`` of causal
+    attention at bf16 ``(q, k, v)`` for the output cotangent ``g``, from
+    the forward's output and log-sum-exp (``_flash_lse_op``).  One launch
+    of ``flash_attention_bwd_bf16``: a preprocess (``rowsum(g * out)``,
+    the dQ accumulator zeroed), the main kernel (P, dS and the five
+    products per 128-key block on the tensor cores, dQ added in f32 with
+    atomics) and dq's rounding.  d_k and d_v are the same bits run to run;
+    d_q's f32 sum takes its terms in no fixed order, so its bits may vary
+    in the last place before its one rounding."""
+    g = g.contiguous()
+    b, s, hkv, gq, d = (int(x) for x in q.shape)
+    if g.dtype != q.dtype or g.shape != q.shape or out.shape != q.shape:
+        raise ValueError("flash attention backward: cotangent and output "
+                         "of q's shape and dtype expected")
+    _check_tensors("flash_attention_bwd", q, k, v, out, g, lse)
+    n = library("flash_attention_bwd").flash_attention_bwd_scratch_floats(
+        b, s, hkv, gq, d)
+    if n <= 0:
+        raise ValueError(f"flash attention backward: head dim {d} or group "
+                         f"{gq} not built")
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device)
+    d_q, d_k, d_v = (torch.empty_like(t) for t in (q, k, v))
+    _launch("flash_attention_bwd", "flash_attention_bwd_bf16", q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), d_q.data_ptr(), d_k.data_ptr(),
+            d_v.data_ptr(), scratch.data_ptr(), b, s, hkv, gq, d)
+    return d_q, d_k, d_v
+
+
+def _flash_lse_backward(ctx, g, _g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    with trace.span("attn.vjp"):
+        trace.count("vjp_kernel")
+        d_q, d_k, d_v = flash_attention_vjp_kernel(q, k, v, out, lse, g)
+    return d_q, d_k, d_v, None
+
+
+_flash_lse_op.register_autograd(_flash_lse_backward,
+                                setup_context=_flash_lse_setup)
+
+# K8's backward: q tiles of 64 // G positions.  The C library's kBq
+# (``csrc/flash_attention_bwd.cu``) sets it: its scratch query returns 0
+# above it, and a test holds the two equal.  Kept here so the forward
+# picks its route without loading the library.
+FLASH_BWD_MAX_GROUP = 64
+
+
+def _kernel_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether autograd records this call and K8's backward kernel takes
+    its inputs: bf16 off the host, D in ``FLASH_HEAD_DIMS``, G at most
+    ``FLASH_BWD_MAX_GROUP``."""
+    return (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)
+            and q.device.type in ("cpu", "cuda") and not _on_cpu(q)
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.dim() == 5 and int(q.shape[4]) in FLASH_HEAD_DIMS
+            and 1 <= int(q.shape[3]) <= FLASH_BWD_MAX_GROUP)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_block: int = 512, pos0: int = 0) -> torch.Tensor:
     """Causal grouped-query attention, differentiable.
 
     q: [B, S, Hkv, G, D]; k/v: [B, S, Hkv, D] -> [B, S, Hkv, G, D].  As in
     the reference's kernel call, S must be a multiple of ``min(q_block, S)``
-    and of ``min(512, S)``: any S up to 512, a multiple of 512 above.  One
-    custom op, ``torch.ops.repro_torch.flash_attention``: its forward
-    launches K8 on a CUDA tensor (f32 or bf16, D in ``FLASH_HEAD_DIMS``,
-    every base pointer 16-byte aligned) or raises, runs the plain version
-    on a CPU tensor, and under ``FakeTensorMode`` only gives the output's
-    shape, so the dry-run, ``local_map`` and the cost model see one named
-    op.  The gradient is the reference's recompute VJP
-    (``ref.flash_attention_vjp``) on the inputs' device: it saves q, k and
-    v, not the output.
+    and of ``min(512, S)``: any S up to 512, a multiple of 512 above.  The
+    forward launches K8 on a CUDA tensor (f32 or bf16, D in
+    ``FLASH_HEAD_DIMS``, every base pointer 16-byte aligned) or raises, and
+    runs the plain version on a CPU tensor.
+
+    Two named ops, each with a fake (shapes only), so the dry-run and
+    ``local_map`` see K8 as one op (the dry-run's fake tensors are on the
+    host and take ``repro_torch::flash_attention``, the op the cost model
+    charges).  Where autograd
+    records and the inputs are bf16 on a card with G at most
+    ``FLASH_BWD_MAX_GROUP``, ``torch.ops.repro_torch.flash_attention_lse``:
+    the forward also writes each row's log-sum-exp and saves q, k, v, the
+    output and the lse; the gradient is K8's backward kernel
+    (``flash_attention_vjp_kernel``), counted ``vjp_kernel`` in the
+    ``attn.vjp`` span.  Otherwise ``torch.ops.repro_torch.flash_attention``
+    (no lse written: serving, prefill, ``no_grad``); its gradient, for f32,
+    host tensors or a group the kernel does not take, is the reference's
+    recompute VJP (``ref.flash_attention_vjp``) on the inputs' device,
+    counted ``vjp_plain``: it saves q, k and v, not the output.
     """
+    if _kernel_vjp(q, k, v):
+        return _flash_lse_op(q, k, v, int(q_block))[0]
     return _flash_op(q, k, v, int(q_block), int(pos0))

@@ -24,8 +24,9 @@ kernels in ``csrc/`` compute, written as ordinary torch ops: the wrappers in
 * ``flash_attention_vjp`` — K8's gradient, the reference's recompute VJP
   (``repro/kernels/ops.py:414-445``): probabilities recomputed in f32 from
   q and k, then d_v, d_p, the row term, d_s, d_q and d_k in f32, each
-  result rounded once.  It has no kernel on the card, as the reference's
-  has no Pallas backward; both devices run it.
+  result rounded once.  The gradient of f32 inputs and of host tensors on
+  both devices; bf16 on a card has a kernel of its own
+  (``csrc/flash_attention_bwd.cu``), held against this one.
 """
 from __future__ import annotations
 

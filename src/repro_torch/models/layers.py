@@ -13,8 +13,11 @@ Attention over a full sequence runs one of two routes, as in the reference:
 Both routes train.  Under autograd each q block of the blocked loop is
 rematerialized (``torch.utils.checkpoint``, as the reference's
 ``jax.checkpoint`` on its scan body), so a backward holds one block's f32
-scores at a time, not ``n_blocks`` of them; K8's gradient is the
-reference's recompute VJP (``kernels.ref.flash_attention_vjp``).
+scores at a time, not ``n_blocks`` of them.  K8's gradient is its
+backward kernel for bf16 on a card (``kernels.ops.flash_attention``: the
+forward then also writes each row's log-sum-exp) and the reference's
+recompute VJP (``kernels.ref.flash_attention_vjp``) for f32 or host
+tensors.
 
 Decode runs against a KV cache with an explicit per-slot position array.
 Unlike the reference's pure functions, ``decode_attention`` and

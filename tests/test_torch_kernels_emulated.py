@@ -8,22 +8,30 @@ becomes a loop over the grid.  The wrappers in ``kernels.ops`` then drive
 these builds through the same ctypes entry points (argument types, pointers,
 shapes) and are held against the plain versions: the combine and the refresh
 scatter bit-equal, the segment sum and the fused layer within rtol=1e-5 /
-1e-4, flash attention (K8) within 1e-5 in f32 and 1e-2 in bf16.  The ``cuda_pipeline.h`` primitives of the multi-buffered combine and
-scatter (K4, K6) run as synchronous copies and dynamic shared memory as a
-static buffer, so the ring's slot arithmetic is checked but not its
-overlap.  ``__shfl_xor_sync`` and ``__shfl_sync`` exchange through a
-block-wide buffer between two barriers of the warp, so every lane of a
-warp calls them together (K8's row reductions, K1's source addresses; a
-lane that has left the kernel drops out of the barrier), while the other
-warps run on (K8's producer waits on a barrier meanwhile).  ``ldst.cuh``'s cache-hinted loads
-and stores (K1) become plain ones.  K8's bf16 body runs on ``wgmma.cuh``'s
-warpgroup primitives and ``tma.cuh``'s tensor-map load; their emulation
-(descriptors decoded as the PTX ISA defines them, operands read through
-the 32/64/128-byte swizzle, the m64nNk16 accumulator and A-fragment
-layouts, TMA boxes with zero fill as synchronous copies, named barriers,
-``setmaxnreg`` as a no-op) is held against numpy by the probe
-``tests/wgmma_probe.cu``, which also runs on the card.  This checks the
-kernels' index math, masking and tile choice; it says nothing about speed
+1e-4, flash attention (K8) within 1e-5 in f32 and 1e-2 in bf16, its
+log-sum-exp within 1e-4 of a plain logsumexp and its backward kernel's
+gradients within 2e-2 of each one's largest magnitude.  The
+``cuda_pipeline.h`` primitives of the multi-buffered combine and scatter
+(K4, K6) run as synchronous copies and dynamic shared memory as a static
+buffer, so the ring's slot arithmetic is checked but not its overlap.
+``__shfl_xor_sync`` and ``__shfl_sync`` exchange through a block-wide
+buffer between two barriers of the warp, so every lane of a warp calls
+them together (K8's row reductions, K1's source addresses; a lane that has
+left the kernel drops out of the barrier), while the other warps run on
+(K8's producer waits on a barrier meanwhile).  ``ldst.cuh``'s cache-hinted
+loads and stores (K1) become plain ones.  K8's bf16 bodies run on
+``wgmma.cuh``'s warpgroup primitives and ``tma.cuh``'s tensor-map loads;
+their emulation (descriptors decoded as the PTX ISA defines them, operands
+read through the 32/64/128-byte swizzle, the m64nNk16 accumulator and
+A-fragment layouts, TMA boxes of 4 and 5 dims with zero fill as
+synchronous copies, named barriers, ``setmaxnreg`` as a no-op, sm_90's
+float2 ``atomicAdd`` as two atomic adds) is held against numpy by the
+probe ``tests/wgmma_probe.cu`` (4-D loads, the K-major SS and the RS
+products), which also runs on the card, and through the backward kernel
+against the plain VJP (5-D loads, the MN-major SS product).  This checks
+the kernels' index math, masking, tile choice and the barriers between
+threads' shared-memory writes and a product that reads them; it says
+nothing about speed
 or about what nvcc accepts, which only the card shows.
 """
 import ctypes
@@ -37,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import build, ops, ref
 
 CUDA_RUNTIME_H = r"""
@@ -94,6 +103,12 @@ struct uint2 { unsigned x, y; };
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d}; }
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+// sm_90's vector atomicAdd (K8's backward adds dQ with it)
+inline float2 atomicAdd(float2* p, float2 v) {
+  std::atomic_ref<float> x(p->x), y(p->y);
+  return {x.fetch_add(v.x), y.fetch_add(v.y)}; }
 template <class T> T __ldg(const T* p) { return *p; }
 inline unsigned char emu_shfl_buf[1024 * 8];
 template <class T> T __shfl_xor_sync(unsigned, T v, int lane_mask) {
@@ -246,6 +261,20 @@ inline float emu_operand(uint64_t desc, int mn, int k, bool k_major) {
   std::memcpy(&x, emu_smem_base + at, 2);
   return emu_bf(x);
 }
+template <int N>
+inline void wgmma_ss_mn(float (&d)[N / 2], uint64_t a, uint64_t b,
+                        int scale_d) {
+  const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+  for (int j = 0; j < N / 8; ++j)
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * w + l / 4 + 8 * (i >> 1);
+      const int col = 8 * j + 2 * (l % 4) + (i & 1);
+      float sum = 0.f;
+      for (int k = 0; k < 16; ++k)
+        sum += emu_operand(a, row, k, false) * emu_operand(b, col, k, false);
+      d[4 * j + i] = (scale_d ? d[4 * j + i] : 0.f) + sum;
+    }
+}
 template <int N> void emu_store(float (&d)[N / 2], int scale_d, int j,
                                 int i, float sum) {
   d[4 * j + i] = (scale_d ? d[4 * j + i] : 0.f) + sum; }
@@ -397,55 +426,76 @@ template <int N> inline void bulk_wait_read() {}
 template <int N> inline void bulk_wait() {}
 inline uint32_t smem_addr(const void* p) {
   return uint32_t(static_cast<const unsigned char*>(p) - emu_smem_base); }
-struct CUtensorMap { const unsigned char* base; uint64_t dims[4];
-                     uint64_t strides[3]; uint32_t box[4]; int swizzle; };
+// a 4-D map is a 5-D one whose outermost dim and box are 1
+struct CUtensorMap { const unsigned char* base; uint64_t dims[5];
+                     uint64_t strides[4]; uint32_t box[5]; int swizzle; };
+template <int R>
+inline cudaError_t emu_encode(CUtensorMap* map, const void* base,
+                              const uint64_t (&dims)[R],
+                              const uint64_t (&strides)[R - 1],
+                              const uint32_t (&box)[R], int swizzle_bytes) {
+  bool ok = uintptr_t(base) % 16 == 0 && box[0] * 2 == uint32_t(
+      swizzle_bytes) && (swizzle_bytes == 32 || swizzle_bytes == 64 ||
+                         swizzle_bytes == 128);
+  for (int i = 0; i < R - 1; ++i) ok = ok && strides[i] % 16 == 0;
+  for (int i = 0; i < R; ++i) ok = ok && box[i] >= 1 && box[i] <= 256;
+  if (!ok) return cudaErrorInvalidValue;
+  map->base = static_cast<const unsigned char*>(base);
+  for (int i = 0; i < 5; ++i) {
+    map->dims[i] = i < R ? dims[i] : 1;
+    map->box[i] = i < R ? box[i] : 1;
+    if (i < 4) map->strides[i] = i < R - 1 ? strides[i] : 0;
+  }
+  map->swizzle = swizzle_bytes;
+  return cudaSuccess;
+}
 inline cudaError_t encode_tensor_map_4d(CUtensorMap* map, const void* base,
                                         const uint64_t (&dims)[4],
                                         const uint64_t (&strides)[3],
                                         const uint32_t (&box)[4],
                                         int swizzle_bytes) {
-  bool ok = uintptr_t(base) % 16 == 0 && box[0] * 2 == uint32_t(
-      swizzle_bytes) && (swizzle_bytes == 32 || swizzle_bytes == 64 ||
-                         swizzle_bytes == 128);
-  for (int i = 0; i < 3; ++i) ok = ok && strides[i] % 16 == 0;
-  for (int i = 0; i < 4; ++i) ok = ok && box[i] >= 1 && box[i] <= 256;
-  if (!ok) return cudaErrorInvalidValue;
-  map->base = static_cast<const unsigned char*>(base);
-  std::memcpy(map->dims, dims, sizeof dims);
-  std::memcpy(map->strides, strides, sizeof strides);
-  std::memcpy(map->box, box, sizeof box);
-  map->swizzle = swizzle_bytes;
-  return cudaSuccess;
-}
+  return emu_encode<4>(map, base, dims, strides, box, swizzle_bytes); }
+inline cudaError_t encode_tensor_map_5d(CUtensorMap* map, const void* base,
+                                        const uint64_t (&dims)[5],
+                                        const uint64_t (&strides)[4],
+                                        const uint32_t (&box)[5],
+                                        int swizzle_bytes) {
+  return emu_encode<5>(map, base, dims, strides, box, swizzle_bytes); }
 // one box, rows of box[0] bf16 (one swizzle row each), coordinates outside
 // the tensor read as zero; the destination must start a swizzle span
-inline void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                        int c2, int c3, uint64_t* bar) {
+inline void tma_load_5d(void* dst, const CUtensorMap* map, int c0, int c1,
+                        int c2, int c3, int c4, uint64_t* bar) {
   const uint32_t w = uint32_t(map->swizzle), at0 = smem_addr(dst);
   if (at0 % (8 * w)) { emu_error = cudaErrorMisalignedAddress; return; }
-  const int c[4] = {c0, c1, c2, c3};
+  const int c[5] = {c0, c1, c2, c3, c4};
   uint32_t row = 0;
+  for (uint32_t i4 = 0; i4 < map->box[4]; ++i4)
   for (uint32_t i3 = 0; i3 < map->box[3]; ++i3)
   for (uint32_t i2 = 0; i2 < map->box[2]; ++i2)
   for (uint32_t i1 = 0; i1 < map->box[1]; ++i1, ++row)
     for (uint32_t e = 0; e < map->box[0]; ++e) {
-      const int64_t x[4] = {int64_t(c[0]) + e, int64_t(c[1]) + i1,
-                            int64_t(c[2]) + i2, int64_t(c[3]) + i3};
+      const int64_t x[5] = {int64_t(c[0]) + e, int64_t(c[1]) + i1,
+                            int64_t(c[2]) + i2, int64_t(c[3]) + i3,
+                            int64_t(c[4]) + i4};
       bool in = true;
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 5; ++i)
         in = in && x[i] >= 0 && uint64_t(x[i]) < map->dims[i];
       uint16_t v = 0;
       if (in)
         std::memcpy(&v, map->base + 2 * x[0] + x[1] * map->strides[0] +
-                        x[2] * map->strides[1] + x[3] * map->strides[2], 2);
+                        x[2] * map->strides[1] + x[3] * map->strides[2] +
+                        x[4] * map->strides[3], 2);
       const uint32_t off = at0 + row * w + 2 * e;
       std::memcpy(emu_smem_base + (off ^ (((off >> 7) & (w / 16 - 1)) << 4)),
                   &v, 2);
     }
   const uint32_t bytes = 2 * map->box[0] * map->box[1] * map->box[2] *
-                         map->box[3];
+                         map->box[3] * map->box[4];
   emu_mbar_update(bar, [&](EmuMbar& b) { b.tx -= bytes; });
 }
+inline void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                        int c2, int c3, uint64_t* bar) {
+  tma_load_5d(dst, map, c0, c1, c2, c3, 0, bar); }
 """
 
 # ldst.cuh's cache-hinted loads and stores as plain ones: the hints change
@@ -912,6 +962,78 @@ def test_emulated_flash_attention_refuses_other_head_dims(emulated_ops):
         emulated_ops._launch("flash_attention", "flash_attention_f32", q,
                              q.data_ptr(), k.data_ptr(), k.data_ptr(),
                              out.data_ptr(), 1, 8, 1, 1, 24, 0)
+
+
+@pytest.mark.parametrize("shape,pos0", [
+    ((1, 100, 2, 1, 16), 0),      # S under 512: a tail tile; D 16
+    ((1, 100, 1, 3, 64), 5),      # G = 3: tiles of 21 positions, a CTA's
+                                  # first tile starts before its keys
+    ((1, 512, 1, 1, 64), 0),      # S a multiple of 512: 4 key blocks
+    ((1, 40, 1, 3, 112), 5)])     # zamba2-7b's head, padded to 128
+def test_emulated_flash_attention_backward(emulated_ops, shape, pos0):
+    """K8's backward kernel through autograd (the lse forward, then
+    ``flash_attention_bwd_bf16``) against the plain VJP on the same bf16
+    inputs and cotangent.  Tolerance: each gradient within 2e-2 of its
+    largest magnitude, elementwise.  The kernel rounds P and dS to bf16 as
+    tensor-core operands (a relative 2^-9 each, over up to S terms a sum)
+    and sums in f32 in another order than the plain version, which keeps
+    both in f32; both round the result once to bf16 (2^-8 apart at most
+    when the f32 values straddle a rounding boundary)."""
+    b, s, hkv, g, d = shape
+    gen = torch.Generator().manual_seed(s * d + g + pos0)
+    q, cot = (torch.randn(b, s, hkv, g, d, generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = emulated_ops.kernel_launches()
+    trace.reset()
+    with torch.profiler.profile():       # the attn.vjp span records
+        out = emulated_ops.flash_attention(qg, kg, vg, 512, pos0)
+        got = torch.autograd.grad(out, (qg, kg, vg), cot)
+    after = emulated_ops.kernel_launches()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    vjp = trace.summary()["attn.vjp"]
+    assert vjp["count"] == 1 and vjp["vjp_kernel"] == 1 and \
+        "vjp_plain" not in vjp
+    want = ref.flash_attention_vjp(q, k, v, cot, 512, pos0)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+        err = (a.float() - w.float()).abs().max().item()
+        top = w.float().abs().max().item()
+        assert err <= 2e-2 * top, (name, err, top)
+
+
+@pytest.mark.parametrize("shape", [(1, 100, 2, 1, 16), (1, 70, 1, 3, 64)])
+def test_emulated_flash_attention_lse(emulated_ops, shape):
+    """The bf16 forward's log-sum-exp against a plain f32 logsumexp of the
+    scaled, causally masked scores: within 1e-4 relative (the kernel's m
+    and l in f32 through exp2 and log2; the output within K8's 1e-2)."""
+    b, s, hkv, g, d = shape
+    gen = torch.Generator().manual_seed(s + g)
+    q = torch.randn(b, s, hkv, g, d, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = emulated_ops._flash_lse_op(q, k, v, 512)
+    scores = torch.einsum("bqhgd,bkhd->bhqgk", q.float(), k.float()) / d ** 0.5
+    pos = torch.arange(s)
+    scores = scores.masked_fill(pos[None, :] > pos[:, None, None], -1e30)
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out.float(), ref.flash_attention(
+        q, k, v, 512).float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("d", [64, 112])
+def test_emulated_flash_backward_group_limit(emulated_ops, d):
+    """``ops.FLASH_BWD_MAX_GROUP``, by which the forward picks the kernel's
+    gradient, is the library's own limit: its scratch query sizes a group
+    of that many heads and refuses one more."""
+    lib = emulated_ops.library("flash_attention_bwd")
+    g = emulated_ops.FLASH_BWD_MAX_GROUP
+    assert lib.flash_attention_bwd_scratch_floats(1, 512, 1, g, d) > 0
+    assert lib.flash_attention_bwd_scratch_floats(1, 512, 1, g + 1, d) == 0
 
 
 PROBE_CU = Path(__file__).resolve().parent / "wgmma_probe.cu"

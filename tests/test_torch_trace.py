@@ -164,6 +164,9 @@ def test_profiled_step_records_each_span(remat, impl, microbatches):
             assert _inside(e, top)
     for e in recomputed + [e for e in got if e["name"] == "attn.vjp"]:
         assert any(_inside(e, b) for b in backs)
+    for e in got:          # f32 on the host: the plain VJP, counted
+        if e["name"] == "attn.vjp":
+            assert e["counters"] == {"vjp_plain": 1}
     for e in got:
         assert e["device_ms"] == e["host_ms"] > 0     # no CUDA device
 
