@@ -1,5 +1,11 @@
 """mixtral-8x22b [moe] — 56L d_model=6144 48H (GQA kv=8) d_ff=16384
-vocab=32768, MoE 8 experts top-2, SWA.  [arXiv:2401.04088; hf]"""
+vocab=32768, MoE 8 experts top-2, SWA.  [arXiv:2401.04088; hf]
+
+The published config has no sliding window (``sliding_window: null``:
+full causal attention).  ``FULL``'s ``window=4096`` follows the JAX
+reference's registry, which this registry mirrors; the benchmark's
+``mixtral-8x22b`` configuration runs the published attention (window 0,
+through K8)."""
 from repro_torch.models.lm import ModelConfig
 
 FULL = ModelConfig(

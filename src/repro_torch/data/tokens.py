@@ -10,11 +10,20 @@ transfer thread's current stream (the reference's ``jax.device_put`` onto
 a sharding); on the host the tensors share the numpy buffers.  Both stages
 run in their own threads with bounded queues (``depth``, the prefetch
 window) and overlap the training step; ``depth=0`` runs them in sequence.
+
+Token ids with no frontend are the reference's
+heavy-tailed draw, ``zipf(1.3) mod vocab``.  With ``zipf_exponent`` set
+they follow Zipf's law over the whole vocabulary instead, as natural text
+does: rank ``r`` (1..vocab) with probability proportional to
+``r ** -zipf_exponent`` (any exponent, 1.0 included), drawn by inverting
+the cumulative law with one uniform a token, and ranks mapped to ids by a
+permutation drawn once from ``default_rng(seed)``, so which ids are
+frequent follows the seed.  The reference has no such option.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -34,9 +43,27 @@ class TokenPipeline:
     seed: int = 0
     depth: int = 2                 # TFP prefetch window (0 = sequential)
     device: DeviceLike = None      # None: cuda:0; "cpu" for the host
+    zipf_exponent: Optional[float] = None   # None: the reference's draw
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
+        self._zipf = None
+        if self.zipf_exponent is not None:
+            v = self.cfg.vocab
+            weight = np.arange(1, v + 1, dtype=np.float64) ** (
+                -float(self.zipf_exponent))
+            cdf = np.cumsum(weight) / weight.sum()
+            cdf[-1] = 1.0
+            ids = np.random.default_rng(self.seed).permutation(v)
+            self._zipf = (cdf, ids.astype(np.int32))
+
+    def _tokens(self, rng: np.random.Generator, shape) -> np.ndarray:
+        if self._zipf is None:
+            # zipf-ish synthetic text: heavy-tailed token ids
+            z = rng.zipf(1.3, shape).astype(np.int64)
+            return (z % self.cfg.vocab).astype(np.int32)
+        cdf, ids = self._zipf
+        return ids[np.searchsorted(cdf, rng.random(shape), side="right")]
 
     def _make_host_batch(self, step: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(self.seed + step)
@@ -54,9 +81,7 @@ class TokenPipeline:
             vis = rng.standard_normal(
                 (self.batch, nv, cfg.d_model)).astype(np.float32)
             return {"tokens": toks, "vision_embeds": vis, "labels": toks}
-        # zipf-ish synthetic text: heavy-tailed token ids
-        z = rng.zipf(1.3, (self.batch, self.seq)).astype(np.int64)
-        toks = (z % self.cfg.vocab).astype(np.int32)
+        toks = self._tokens(rng, (self.batch, self.seq))
         return {"tokens": toks, "labels": toks}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:

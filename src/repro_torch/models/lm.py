@@ -485,8 +485,11 @@ def forward(params: LM, cfg: ModelConfig, batch: Dict[str, Any],
         x, aux, caches = _hidden(params, cfg, batch, return_cache)
         x = _GradCast.apply(_rows(x), cfg.torch_dtype)
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
-        logits = constrain(x @ params.lm_head, ("pod", "data"), None,
-                           "model")
+        # the head gathered over the d that FSDP shards (as the experts'
+        # weights, models/moe.py): else DTensor contracts over the sharded
+        # d and each rank holds a Partial [B, S, vocab] of the whole batch
+        head = constrain(params.lm_head, None, "model")
+        logits = constrain(x @ head, ("pod", "data"), None, "model")
     return logits, aux, caches
 
 

@@ -26,6 +26,18 @@ the experts with no copy; the reference's is ``[B, E, C, D]``, the same
 numbers.  The reference's mesh branches are here: its ``constrain`` sites,
 and the ``ep`` policy, which shards the capacity buffer over experts on
 the model axis when E divides it.
+
+Under the profiler (``repro_torch.trace``) the layer records its spans:
+``moe.ffn`` around the whole, inside it ``moe.route`` (the router's
+logits and the aux loss; then, per rank, the index math and the gate
+weights), ``moe.dispatch`` (the gather into the capacity buffer),
+``moe.experts`` (the three ``bmm`` and the SiLU, with whatever gathers of
+the expert weights a mesh makes) and ``moe.combine``; and its counters on
+``moe.ffn``, each a device tensor read when the span is, per rank over
+its own rows: ``moe.assignments`` (token-expert pairs the router chose),
+``moe.dropped`` (those past their expert's capacity), ``moe.slots`` (the
+capacity buffer's slots) and ``moe.slots_filled``.  Off, these cost one
+check each.
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from .. import trace
 from ..dist import (_fit_spec, axis_sizes, constrain, current_mesh,
                     current_policy, pspec, shard_map_compat)
 
@@ -139,18 +152,25 @@ def _dispatch(x: torch.Tensor, logits: torch.Tensor, top_k: int,
     ``[B, S, K]`` in ``x``'s dtype."""
     b, s, d = x.shape
     e = logits.shape[-1]
-    with torch.no_grad():
-        token_for_slot, slot_valid, slot_for_assign, keep, experts = \
-            _routing_indices(logits, top_k, capacity)
-    gate_logits = torch.gather(logits, -1, experts)             # [B, S, K]
-    weights = torch.softmax(gate_logits.float(), dim=-1)
-    # a gather on the token axis into the [E, B, C, D] buffer
-    rows = torch.arange(b, device=x.device)
-    tok = token_for_slot.reshape(b, e, capacity).permute(1, 0, 2)
-    xe = x[rows[None, :, None], tok]                            # [E, B, C, D]
-    valid = slot_valid.reshape(b, e, capacity).permute(1, 0, 2)
-    xe = xe.masked_fill(~valid[..., None], 0)
-    wk = (weights * keep.reshape(b, s, top_k)).to(x.dtype)
+    with trace.span("moe.route"):
+        with torch.no_grad():
+            token_for_slot, slot_valid, slot_for_assign, keep, experts = \
+                _routing_indices(logits, top_k, capacity)
+        gate_logits = torch.gather(logits, -1, experts)         # [B, S, K]
+        weights = torch.softmax(gate_logits.float(), dim=-1)
+    if trace.recording():
+        trace.count("moe.assignments", keep.numel())
+        trace.count("moe.dropped", (~keep).sum())
+        trace.count("moe.slots", slot_valid.numel())
+        trace.count("moe.slots_filled", slot_valid.sum())
+    with trace.span("moe.dispatch"):
+        # a gather on the token axis into the [E, B, C, D] buffer
+        rows = torch.arange(b, device=x.device)
+        tok = token_for_slot.reshape(b, e, capacity).permute(1, 0, 2)
+        xe = x[rows[None, :, None], tok]                        # [E, B, C, D]
+        valid = slot_valid.reshape(b, e, capacity).permute(1, 0, 2)
+        xe = xe.masked_fill(~valid[..., None], 0)
+        wk = (weights * keep.reshape(b, s, top_k)).to(x.dtype)
     return xe, slot_for_assign, wk
 
 
@@ -160,11 +180,12 @@ def _combine(ye: torch.Tensor, slot_for_assign: torch.Tensor,
     D]``, weighted over K -> ``[B, S, D]``."""
     _, b, capacity, d = ye.shape
     s, top_k = wk.shape[1], wk.shape[2]
-    rows = torch.arange(b, device=ye.device)
-    ya = ye[slot_for_assign // capacity, rows[:, None],
-            slot_for_assign % capacity]                         # [B, S*K, D]
-    return torch.bmm(wk.reshape(b * s, 1, top_k),
-                     ya.reshape(b * s, top_k, d)).reshape(b, s, d)
+    with trace.span("moe.combine"):
+        rows = torch.arange(b, device=ye.device)
+        ya = ye[slot_for_assign // capacity, rows[:, None],
+                slot_for_assign % capacity]                     # [B, S*K, D]
+        return torch.bmm(wk.reshape(b * s, 1, top_k),
+                         ya.reshape(b * s, top_k, d)).reshape(b, s, d)
 
 
 def moe_ffn(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
@@ -179,22 +200,30 @@ def moe_ffn(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
     rank-local, as in the reference), and the expert products are DTensor
     products under the reference's constraints.
     """
+    with trace.span("moe.ffn"):
+        return _moe_ffn(x, params, top_k, capacity_factor)
+
+
+def _moe_ffn(x: torch.Tensor, params: Mapping[str, torch.Tensor],
+             top_k: int, capacity_factor: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     e = params["router"].shape[1]
     capacity = _capacity(s, e, top_k, capacity_factor)
     x = constrain(x, ("pod", "data"), None, None)
-    # [B, S, E]; every expert's logit beside its row (the routing reads
-    # them per row); the identity with no mesh
-    logits = constrain(x @ params["router"].to(x.dtype), ("pod", "data"),
-                       None, None)
-    # load-balancing aux loss per group (= batch row), as in Switch:
-    # E * sum_e f_e(row) p_e(row), averaged over rows; it decomposes over
-    # microbatches
-    probs = torch.softmax(logits.float(), dim=-1)
-    top1 = torch.argmax(logits, dim=-1)                  # the first maximum
-    fe = (top1[..., None] == torch.arange(e, device=x.device)
-          ).float().mean(1)                                     # [B, E]
-    aux = (e * torch.sum(fe * probs.mean(1), dim=-1)).mean()
+    with trace.span("moe.route"):
+        # [B, S, E]; every expert's logit beside its row (the routing
+        # reads them per row); the identity with no mesh
+        logits = constrain(x @ params["router"].to(x.dtype),
+                           ("pod", "data"), None, None)
+        # load-balancing aux loss per group (= batch row), as in Switch:
+        # E * sum_e f_e(row) p_e(row), averaged over rows; it decomposes
+        # over microbatches
+        probs = torch.softmax(logits.float(), dim=-1)
+        top1 = torch.argmax(logits, dim=-1)              # the first maximum
+        fe = (top1[..., None] == torch.arange(e, device=x.device)
+              ).float().mean(1)                                 # [B, E]
+        aux = (e * torch.sum(fe * probs.mean(1), dim=-1)).mean()
 
     mesh = current_mesh()
     dispatch = functools.partial(_dispatch, top_k=top_k, capacity=capacity)
@@ -219,11 +248,20 @@ def moe_ffn(x: torch.Tensor, params: Mapping[str, torch.Tensor], *,
     f_ax = None if ep else "model"
 
     xe, slot_for_assign, wk = dispatch(x, logits)
-    xe = constrain(xe, e_ax, ("pod", "data"), None, None)       # [E, B, C, D]
-    xe = xe.reshape(e, b * capacity, d)
-    w1, w3, w2 = (params[n].to(x.dtype) for n in ("w1", "w3", "w2"))
-    h = F.silu(torch.bmm(xe, w1)) * torch.bmm(xe, w3)           # [E, BC, F]
-    h = constrain(h, e_ax, ("pod", "data"), f_ax)
-    ye = constrain(torch.bmm(h, w2), e_ax, ("pod", "data"), None)
+    with trace.span("moe.experts"):
+        xe = constrain(xe, e_ax, ("pod", "data"), None, None)  # [E, B, C, D]
+        xe = xe.reshape(e, b * capacity, d)
+        # the weights gathered to their product layout (experts over
+        # model under 'ep', F over model under tp2d, D whole): left to
+        # itself DTensor contracts over the D that FSDP shards and makes
+        # each rank a Partial [E, BC, F] of the whole batch (2.5 GiB a
+        # layer at mixtral's widths), reduce-scattered, and gathered
+        # again in the backward
+        w1, w3 = (constrain(params[n].to(x.dtype), e_ax, None, f_ax)
+                  for n in ("w1", "w3"))
+        w2 = constrain(params["w2"].to(x.dtype), e_ax, f_ax, None)
+        h = F.silu(torch.bmm(xe, w1)) * torch.bmm(xe, w3)       # [E, BC, F]
+        h = constrain(h, e_ax, ("pod", "data"), f_ax)
+        ye = constrain(torch.bmm(h, w2), e_ax, ("pod", "data"), None)
     out = combine(ye.reshape(e, b, capacity, d), slot_for_assign, wk)
     return constrain(out, ("pod", "data"), None, None), aux

@@ -28,6 +28,12 @@ synchronized the device.  One train step is open at a time.
     with trace.span("lm.forward"):
         ...
     trace.count("alloc_retries", n)      # onto the innermost open span
+
+A counter's value may be a 0-d device tensor: it is added on the device
+and read only when the entry is (``spans()``, after the caller has
+synchronized), so counting what a kernel computed adds no host
+synchronisation to the step.  ``recording()`` tells a caller whether a
+count would be kept, so that it computes one only then.
 """
 from __future__ import annotations
 
@@ -35,14 +41,14 @@ import collections
 import functools
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
 from repro_torch.annotations import guarded_by
 
-__all__ = ["span", "step", "count", "spans", "reset", "summary", "dropped",
-           "CAPACITY", "TRAIN_STEP"]
+__all__ = ["span", "step", "count", "recording", "spans", "reset",
+           "summary", "dropped", "CAPACITY", "TRAIN_STEP"]
 
 CAPACITY = 65_536
 TRAIN_STEP = "lm.train_step"
@@ -94,7 +100,7 @@ class _Span:
         self.name = name
         self.device = device          # set for a step; else its step's
         self.events = None
-        self.counters: Dict[str, int] = {}
+        self.counters: Dict[str, Union[int, torch.Tensor]] = {}
         self._retries = None
 
     def __call__(self, fn: Callable) -> Callable:
@@ -143,7 +149,8 @@ class _Span:
         return {"id": self.id, "name": self.name, "parent": self.parent,
                 "step": self.step, "thread": self.thread,
                 "start_ns": self.t0, "end_ns": self.t1, "host_ms": host_ms,
-                "device_ms": device_ms, "counters": dict(self.counters)}
+                "device_ms": device_ms,
+                "counters": {k: int(v) for k, v in self.counters.items()}}
 
 
 def _alloc_retries(dev: torch.device) -> int:
@@ -232,9 +239,16 @@ def step(device) -> Any:
     return _Span(TRAIN_STEP, torch.device(device))
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` of the innermost span open on this
-    thread (nothing while the profiler is off, or outside every span)."""
+def recording() -> bool:
+    """Whether spans and counts record on this thread now (the profiler
+    records)."""
+    return _profiler_enabled()
+
+
+def count(name: str, n: Union[int, torch.Tensor] = 1) -> None:
+    """Add ``n`` (an int, or a 0-d integer tensor read when the entry is)
+    to counter ``name`` of the innermost span open on this thread
+    (nothing while the profiler is off, or outside every span)."""
     if not _profiler_enabled():
         return
     stack = _REC.stack()
